@@ -1,0 +1,547 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
+H100: the quickest proof that the port builds and runs on the card.
+
+    python3 chip_smoke.py
+
+Phases (each failure makes the exit code non-zero):
+  1. device and build: the card's name and power limit, versions, and the
+     three CUDA kernels built from ``src/repro_torch/kernels/csrc`` with one
+     ``nvcc`` each, all started together;
+  2. every kernel against its plain PyTorch version on the card, at the
+     kernel test shapes and at the main path's shapes, with the tolerances of
+     ``tests/test_kernels.py``; a tie case; two launches of the E-step kernel
+     giving the same bits;
+  3. the main path at the paper's MNIST width: FedGenGMM (20 clients, 60,000
+     rows, d = 24, K = 30, |S| = 30,000), then scoring requests through
+     ``gmm_logpdf`` (avg log-likelihood, AUC-PR), with every kernel's launch
+     count read around the run; a central GMM for comparison;
+  4. EM agreement on the card: from one injected init, the fused and the
+     reference backends reach final avg log-likelihoods within 1e-4 on the
+     central fit and on the 20 local fits at the default tol; the local
+     fits at tol 0 are reported beside a float64 witness;
+  5. kernel times at the main path's shapes against their bounds;
+  6. the main path's device time by kernel (``torch.profiler``).
+
+The last two lines are the ``{"kernels": [...]}`` summary and
+``{"ok": true, "device": {...}}``. Without CUDA, or without the repository
+beside it, the script exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+# tests/test_kernels.py SHAPES, (N, d, K)
+KERNEL_SHAPES = [(64, 4, 2), (256, 24, 30), (1000, 11, 15), (513, 84, 10),
+                 (100, 38, 10), (2048, 128, 64), (17, 3, 1)]
+# The main path: mnist_like(n_train=60000) over 20 Dirichlet(0.5) clients
+# pads to (20, 7320, 24); K = 30; the refit runs on |S| = 50 * 20 * 30 rows.
+N_TRAIN, CLIENTS, N_PAD, D, K, H = 60000, 20, 7320, 24, 30, 50
+N_SYNTH = H * CLIENTS * K
+
+KERNELS = {
+    "gmm_logpdf": ("src/repro_torch/kernels/csrc/gmm_logpdf.cu",
+                   "src/repro/kernels/gmm_logpdf.py:31"),
+    "estep_stats": ("src/repro_torch/kernels/csrc/estep_stats.cu",
+                    "src/repro/kernels/estep_stats.py:25"),
+    "kmeans_assign": ("src/repro_torch/kernels/csrc/kmeans_assign.cu",
+                      "src/repro/kernels/kmeans_assign.py:18"),
+}
+
+
+class Failed(Exception):
+    pass
+
+
+def check(cond, what: str):
+    if not cond:
+        raise Failed(what)
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def close(a, b, rtol, atol, what):
+    """``a`` within ``atol + rtol*|b|`` of ``b`` everywhere; returns the
+    largest absolute difference."""
+    import torch
+    a, b = a.double(), b.double()
+    err = float((a - b).abs().max()) if a.numel() else 0.0
+    ok = bool(torch.all((a - b).abs() <= atol + rtol * b.abs()))
+    check(ok and bool(torch.isfinite(a).all()),
+          f"{what}: max abs err {err} beyond rtol={rtol} atol={atol}")
+    return err
+
+
+def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def model_inputs(rng, n, d, k, dev, batch=None):
+    """The inputs of tests/test_kernels.py::make_inputs (optionally with a
+    leading batch axis), as float32 tensors on ``dev``."""
+    import numpy as np
+    import torch
+    lead = () if batch is None else (batch,)
+    x = rng.normal(0, 2, lead + (n, d))
+    mu = rng.normal(0, 2, lead + (k, d))
+    var = rng.uniform(0.05, 3.0, lead + (k, d))
+    lw = np.log(rng.dirichlet(np.ones(k), size=lead or None))
+    return tuple(torch.as_tensor(a, dtype=torch.float32, device=dev)
+                 for a in (x, mu, var, lw))
+
+
+# ----------------------------------------------------------------------
+# Phase 2: kernels against their plain versions
+# ----------------------------------------------------------------------
+
+def phase_kernels(dev, report):
+    import numpy as np
+    import torch
+    from repro_torch.kernels import estep_stats, gmm_logpdf, kmeans_assign
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import pack_params
+
+    def logpdf_case(n, d, k, seed):
+        x, mu, var, lw = model_inputs(np.random.default_rng(seed), n, d, k,
+                                      dev)
+        a, b, c = pack_params(mu, var, lw)
+        out = gmm_logpdf.gmm_logpdf(x, a, b, c)
+        torch.cuda.synchronize()
+        close(out, ref.gmm_logpdf_ref(x, mu, var, lw), 2e-4, 2e-4,
+              f"gmm_logpdf vs oracle at {(n, d, k)}")
+        return close(out, ref.gmm_logpdf_packed(x, a, b, c), 2e-4, 2e-4,
+                     f"gmm_logpdf vs plain at {(n, d, k)}")
+
+    def estep_case(c_, n, d, k, seed):
+        rng = np.random.default_rng(seed)
+        x, mu, var, lw = model_inputs(rng, n, d, k, dev, batch=c_)
+        w = torch.as_tensor(rng.uniform(0, 1, (c_, n)), dtype=torch.float32,
+                            device=dev)
+        a, b, c = pack_params(mu, var, lw)
+        got = estep_stats.estep_stats(x, w, a, b, c)
+        exp = ref.estep_stats_packed(x, w, a, b, c)
+        torch.cuda.synchronize()
+        tol = [(1e-3, 1e-4), (1e-3, 1e-3), (1e-3, 1e-3), (1e-4, 0.0)]
+        errs = [close(g, e, rt, at, f"estep_stats[{i}] at {(c_, n, d, k)}")
+                for i, (g, e, (rt, at)) in enumerate(zip(got, exp, tol))]
+        again = estep_stats.estep_stats(x, w, a, b, c)
+        check(all(torch.equal(u, v) for u, v in zip(got, again)),
+              f"estep_stats not bit-reproducible at {(c_, n, d, k)}")
+        return max(errs)
+
+    def assign_case(bsz, n, d, k, seed, centers=None):
+        x, mu, _, _ = model_inputs(np.random.default_rng(seed), n, d, k, dev,
+                                   batch=bsz)
+        if centers is not None:
+            mu = centers
+        ct = mu.transpose(-1, -2).contiguous()
+        c2 = (mu * mu).sum(-1).contiguous()
+        idx, d2 = kmeans_assign.kmeans_assign(x, ct, c2)
+        eidx, ed2 = ref.kmeans_assign_packed(x, ct, c2)
+        torch.cuda.synchronize()
+        err = close(d2, ed2, 1e-4, 1e-4, f"kmeans_assign d2 at {(n, d, k)}")
+        x2 = (x * x).sum(-1, keepdim=True)
+        dist = torch.clamp(x2 - 2.0 * (x @ ct) + c2.unsqueeze(-2), min=0.0)
+        top2 = torch.topk(dist, min(2, k), dim=-1, largest=False).values
+        clear = (top2[..., -1] - top2[..., 0] > 1e-4) if k > 1 else \
+            torch.ones_like(idx, dtype=torch.bool)
+        check(bool(torch.all((idx == eidx) | ~clear)),
+              f"kmeans_assign index mismatch at {(n, d, k)}")
+        return err, idx, eidx
+
+    errs = {"gmm_logpdf": 0.0, "estep_stats": 0.0, "kmeans_assign": 0.0}
+    for i, (n, d, k) in enumerate(KERNEL_SHAPES):
+        logpdf_case(n, d, k, 100 + i)
+        estep_case(1, n, d, k, 200 + i)
+        assign_case(1, n, d, k, 300 + i)
+    # main-path shapes: scoring the training rows; the batched local E-step
+    # and the refit E-step; the batched local Lloyd sweep and the refit's
+    errs["gmm_logpdf"] = logpdf_case(N_TRAIN, D, K, 1)
+    errs["estep_stats"] = max(estep_case(CLIENTS, N_PAD, D, K, 2),
+                              estep_case(1, N_SYNTH, D, K, 3))
+    errs["kmeans_assign"] = max(assign_case(CLIENTS, N_PAD, D, K, 4)[0],
+                                assign_case(1, N_SYNTH, D, K, 5)[0])
+    # ties: every center duplicated, so each row has two nearest centers
+    rng = np.random.default_rng(6)
+    base = torch.as_tensor(rng.normal(0, 2, (1, 8, D)), dtype=torch.float32,
+                           device=dev)
+    dup = torch.cat([base, base], dim=1)
+    _, idx, eidx = assign_case(1, 4096, D, 16, 7, centers=dup)
+    check(bool(torch.all(idx < 8)) and torch.equal(idx, eidx),
+          "kmeans_assign does not resolve ties to the first index")
+    log(f"phase 2: kernels match their plain versions; main-path max abs "
+        f"err {errs}; estep_stats bit-reproducible; ties to first index")
+    report["errs"] = errs
+
+
+# ----------------------------------------------------------------------
+# Phase 3: the main path
+# ----------------------------------------------------------------------
+
+def phase_main_path(dev, report):
+    import numpy as np
+    import torch
+    from repro_torch.api import (FedGenGMM, FitConfig, GMMEstimator,
+                                 log_prob, score)
+    from repro_torch.core.metrics import auc_pr
+    from repro_torch.core.partition import partition
+    from repro_torch.data.datasets import mnist_like
+    from repro_torch.fed.ledger import gmm_payload_floats
+    from repro_torch.kernels import estep_stats, gmm_logpdf, kmeans_assign
+
+    t0 = time.perf_counter()
+    ds = mnist_like(np.random.default_rng(0), n_train=N_TRAIN)
+    split = partition(np.random.default_rng(0), ds.x_train, ds.y_train,
+                      CLIENTS, "dirichlet", 0.5)
+    log(f"phase 3: data {ds.x_train.shape}, split {split.data.shape}, client "
+        f"sizes {int(split.sizes.min())}..{int(split.sizes.max())} "
+        f"({time.perf_counter() - t0:.1f} s on the host)")
+    check(split.data.shape == (CLIENTS, N_PAD, D), "unexpected split shape")
+
+    modules = {"gmm_logpdf": gmm_logpdf, "estep_stats": estep_stats,
+               "kmeans_assign": kmeans_assign}
+    for m in modules.values():
+        m.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fed = FedGenGMM(k_clients=K, k_global=K, h=H,
+                    device=dev.type).run(split, seed=0)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    # scoring: the fitness score, then anomaly requests of 128 rows each
+    cfg = FitConfig(device=dev.type)
+    ll = float(score(fed.global_gmm, ds.x_train, config=cfg))
+    rows = np.concatenate([ds.x_test_in, ds.x_test_ood])
+    scores = np.concatenate([
+        -log_prob(fed.global_gmm, rows[i:i + 128], cfg).cpu().numpy()
+        for i in range(0, len(rows), 128)])
+    torch.cuda.synchronize()
+    t_total = time.perf_counter() - t0
+    launches = {name: m.launches for name, m in modules.items()}
+    labels = np.r_[np.zeros(len(ds.x_test_in)), np.ones(len(ds.x_test_ood))]
+    auc = auc_pr(scores, labels)
+    comm = fed.comm
+    iters = [int(r.n_iter) for r in fed.local_results]
+    log(f"phase 3: FedGenGMM fit {t_fit:.3f} s, fit + scoring "
+        f"{t_total:.3f} s (host clock, synchronized)")
+    log(f"phase 3: global avg loglik {ll:.6f}, AUC-PR {auc:.6f}, |S| "
+        f"{fed.synthetic.shape[0]}, local EM iterations {iters}")
+    log(f"phase 3: comm {comm._asdict()}, {comm.total_mb:.4f} MiB")
+    log(f"phase 3: launches on the main path {launches}")
+    up = CLIENTS * (gmm_payload_floats(K, D, True) + 1)
+    check(comm.rounds == 1 and comm.uplink_floats == up,
+          f"uplink_floats {comm.uplink_floats} != closed form {up}")
+    check(fed.synthetic.shape == (N_SYNTH, D), "unexpected |S|")
+    check(np.isfinite(ll) and np.isfinite(scores).all() and 0 <= auc <= 1,
+          "non-finite scores")
+    for t in (fed.global_gmm.weights, fed.global_gmm.means,
+              fed.global_gmm.covs):
+        check(bool(torch.isfinite(t).all()), "non-finite global model")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the main path")
+
+    t0 = time.perf_counter()
+    central = GMMEstimator(K, device=dev.type).fit(ds.x_train, seed=0)
+    torch.cuda.synchronize()
+    t_central = time.perf_counter() - t0
+    ll_central = float(central.score(ds.x_train))
+    check(np.isfinite(ll_central), "non-finite central log-likelihood")
+    log(f"phase 3: central GMM({K}) avg loglik {ll_central:.6f} "
+        f"({t_central:.3f} s, {int(central.result_.n_iter)} EM iterations)")
+    report.update(launches=launches, fit_s=t_fit, total_s=t_total, ll=ll,
+                  auc=auc, ll_central=ll_central, split=split, ds=ds)
+
+
+# ----------------------------------------------------------------------
+# Phase 4: fused and reference EM from one injected init
+# ----------------------------------------------------------------------
+
+def phase_em_agreement(dev, report):
+    """From one injected init, fused and reference EM must end within 1e-4
+    in avg log-likelihood: the central fit (60,000 rows, one model) at 30
+    iterations with tol 0 and at the default tol, and the 20 local fits at
+    the default tol, the main path's setting. The local fits at tol 0 over
+    30 iterations are reported with a float64 witness (ROADMAP Queue C, R5):
+    the same 30 iterations in float64 from the same init, the local
+    variances at the reg_covar floor, and the float32 identity's error per
+    log density at the fused fit's model against a float64 direct form."""
+    import torch
+    from repro_torch.core.config import FitConfig
+    from repro_torch.core.em import _em_loop, fit_gmm_cfg, init_from_kmeans
+    from repro_torch.core.gmm import GMM, LOG_2PI
+    from repro_torch.convert import split_to_clients
+
+    clients = split_to_clients(report["split"], dev)
+    x = torch.as_tensor(report["ds"].x_train, device=dev)
+    g_central = init_from_kmeans(2, x, K, assign_backend="reference")
+    g_local = init_from_kmeans(1, clients.data, K, clients.mask,
+                               assign_backend="reference")
+    cases = (("central fit", x, None, g_central, 0.0, 30, True),
+             ("central fit", x, None, g_central, "auto", "auto", True),
+             ("20 local fits", clients.data, clients.mask, g_local, "auto",
+              "auto", True),
+             ("20 local fits", clients.data, clients.mask, g_local, 0.0, 30,
+              False))
+    for name, data, w, g0, tol, max_iter, held in cases:
+        res = {}
+        for backend in ("fused", "reference"):
+            cfg = FitConfig(backend=backend, tol=tol, max_iter=max_iter,
+                            device=dev.type)
+            res[backend] = fit_gmm_cfg(0, data, K, cfg, w, init_gmm=g0)
+        lls = {b: r.log_likelihood for b, r in res.items()}
+        diff = float((lls["fused"] - lls["reference"]).abs().max())
+        log(f"phase 4: {name}, tol={tol}, max_iter={max_iter}: max |ll "
+            f"fused - ll reference| = {diff:.3e}"
+            + (" (held to 1e-4)" if held else " (reported)"))
+        report.setdefault("em_diff", {})[f"{name} tol={tol}"] = diff
+        if held:
+            check(diff <= 1e-4, f"{name} at tol={tol}: fused and reference "
+                  f"EM differ by {diff} > 1e-4")
+            continue
+        # the float64 witness of the reported case
+        reg = cfg.reg_covar
+        g64 = GMM(g0.weights.double(), g0.means.double(), g0.covs.double())
+        w64 = w.double()
+        gm64, ll64, _, _ = _em_loop(g64, data.double(), w64, 0.0, reg,
+                                    max_iter, "reference", None)
+        for b in ("fused", "reference"):
+            covs = res[b].gmm.covs
+            log(f"phase 4:   {b}: max |ll - ll float64| = "
+                f"{float((lls[b].double() - ll64).abs().max()):.3e}; "
+                f"variances <= 2*reg_covar: {int((covs <= 2 * reg).sum())} "
+                f"of {covs.numel()}, smallest {float(covs.min()):.3e}")
+        log(f"phase 4:   float64: variances <= 2*reg_covar: "
+            f"{int((gm64.covs <= 2 * reg).sum())}, smallest "
+            f"{float(gm64.covs.min()):.3e}")
+        g = res["fused"].gmm
+        lp32 = g.component_log_prob(data).double()
+        x64, mu, var = data.double(), g.means.double(), g.covs.double()
+        maha = torch.stack([((x64 - mu[:, k:k + 1]) ** 2
+                             / var[:, k:k + 1]).sum(-1) for k in range(K)],
+                           dim=-1)
+        lp64 = -0.5 * (maha + torch.log(var).sum(-1).unsqueeze(-2)
+                       + D * LOG_2PI)
+        err = (lp32 - lp64).abs() * (w64 > 0).unsqueeze(-1)
+        floor = (var <= 2 * reg).any(-1).unsqueeze(-2).expand_as(err)
+        log(f"phase 4:   float32 identity vs float64 direct log density at "
+            f"the fused fit's model: max err {float(err.max()):.3e}, on "
+            f"components with a variance at the floor "
+            f"{float(err[floor].max()) if floor.any() else 0.0:.3e}, on the "
+            f"others {float(err[~floor].max()):.3e}")
+
+
+# ----------------------------------------------------------------------
+# Phase 5: times at the main path's shapes
+# ----------------------------------------------------------------------
+
+def phase_times(dev, report):
+    import numpy as np
+    import torch
+    from repro_torch.kernels import estep_stats, gmm_logpdf, kmeans_assign
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import pack_params
+
+    rng = np.random.default_rng(9)
+    rows = {}
+    # gmm_logpdf: scoring the 60,000 training rows
+    x, mu, var, lw = model_inputs(rng, N_TRAIN, D, K, dev)
+    a, b, c = pack_params(mu, var, lw)
+    n = N_TRAIN
+    rows["gmm_logpdf"] = (
+        lambda: gmm_logpdf.gmm_logpdf(x, a, b, c),
+        lambda: ref.gmm_logpdf_packed(x, a, b, c),
+        n * (D + K) * 4, 4 * n * D * K)
+    # estep_stats: one iteration of the 20 batched local fits
+    xe, mue, vare, lwe = model_inputs(rng, N_PAD, D, K, dev, batch=CLIENTS)
+    we = torch.as_tensor(report["split"].mask, device=dev)
+    ae, be, ce = pack_params(mue, vare, lwe)
+    n = CLIENTS * N_PAD
+    rows["estep_stats"] = (
+        lambda: estep_stats.estep_stats(xe, we, ae, be, ce),
+        lambda: ref.estep_stats_packed(xe, we, ae, be, ce),
+        n * (D + 1) * 4, 8 * n * D * K)
+    # kmeans_assign: one Lloyd sweep of the 20 batched local k-means
+    ct = mue.transpose(-1, -2).contiguous()
+    c2 = (mue * mue).sum(-1).contiguous()
+    rows["kmeans_assign"] = (
+        lambda: kmeans_assign.kmeans_assign(xe, ct, c2),
+        lambda: ref.kmeans_assign_packed(xe, ct, c2),
+        n * (D + 2) * 4, 2 * n * D * K)
+    out = []
+    for name, (kern, plain, nbytes, flops) in rows.items():
+        ms = min(cuda_ms(kern), cuda_ms(kern))
+        plain_ms = min(cuda_ms(plain), cuda_ms(plain))
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = flops / PEAK_F32_FLOPS * 1e3
+        source, replaces = KERNELS[name]
+        out.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": report["launches"][name],
+            "max_abs_err": report["errs"][name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None})
+        log(f"phase 5: {name}: {ms:.5f} ms (plain {plain_ms:.5f} ms, bound "
+            f"{max(t_bytes, t_ops):.5f} ms by "
+            f"{out[-1]['bound_by']})")
+    # the refit's E-step (one client, |S| rows), reported beside the table
+    xs, mus, vars_, lws = model_inputs(rng, N_SYNTH, D, K, dev, batch=1)
+    ws = torch.ones((1, N_SYNTH), device=dev)
+    as_, bs, cs = pack_params(mus, vars_, lws)
+    ms = cuda_ms(lambda: estep_stats.estep_stats(xs, ws, as_, bs, cs))
+    plain_ms = cuda_ms(lambda: ref.estep_stats_packed(xs, ws, as_, bs, cs))
+    log(f"phase 5: estep_stats at the refit shape (1, {N_SYNTH}, {D}, {K}): "
+        f"{ms:.5f} ms (plain {plain_ms:.5f} ms)")
+    report["kernels"] = out
+
+
+# ----------------------------------------------------------------------
+# Phase 6: where the main path's device time goes
+# ----------------------------------------------------------------------
+
+def phase_trace(dev, report):
+    """A second (warm) FedGenGMM run timed on the host clock, then the
+    device time by kernel of a third under ``torch.profiler``. The runs
+    fail the phase like any other; only an error of the profiler itself, or
+    a trace with no device time, leaves the breakdown "not measured"."""
+    import torch
+    from repro_torch.api import FedGenGMM
+    t0 = time.perf_counter()
+    FedGenGMM(k_clients=K, k_global=K, h=H, device=dev.type).run(
+        report["split"], seed=0)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    log(f"phase 6: FedGenGMM fit, second (warm) run {warm:.3f} s")
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as err:  # the profiler only: report, do not fail
+        log(f"phase 6: trace not measured ({type(err).__name__}: {err})")
+        prof = None
+    fed = FedGenGMM(k_clients=K, k_global=K, h=H, device=dev.type).run(
+        report["split"], seed=0)
+    torch.cuda.synchronize()
+    for t in (fed.global_gmm.weights, fed.global_gmm.means,
+              fed.global_gmm.covs):
+        check(bool(torch.isfinite(t).all()), "non-finite global model in "
+              "the profiled run")
+    if prof is None:
+        return
+    try:
+        prof.stop()
+        by_name: dict = {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[ev.name] = (by_name.get(ev.name, 0.0)
+                                    + ev.time_range.elapsed_us() / 1e3)
+    except Exception as err:  # the profiler only: report, do not fail
+        log(f"phase 6: trace not measured ({type(err).__name__}: {err})")
+        return
+    busy = sum(by_name.values())
+    if busy <= 0:
+        log("phase 6: trace not measured (no device time recorded)")
+        return
+    log(f"phase 6: FedGenGMM fit device busy {busy:.3f} ms of "
+        f"{warm * 1e3:.3f} ms warm unprofiled wall (idle share "
+        f"{1 - busy / (warm * 1e3):.4f})")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"phase 6:   {ms:10.3f} ms  {name[:100]}")
+
+
+# ----------------------------------------------------------------------
+
+def main() -> int:
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke.py: the repository (src/repro_torch) is not beside "
+              "this script", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: torch.cuda.is_available() is False; this smoke "
+              "test needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    from repro_torch.core.config import fused_native, resolve_device
+    from repro_torch.kernels import _build
+
+    dev = resolve_device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+        else f"nvidia-smi failed: {smi.stderr.strip()}")
+    log(f"phase 1: python {sys.version.split()[0]}, torch {torch.__version__}"
+        f", CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
+        f"capability {torch.cuda.get_device_capability(0)}")
+    failures = []
+    report: dict = {}
+    try:
+        check(fused_native(dev), "the card is not a compute-capability 9.x "
+              "(Hopper) device")
+        t0 = time.perf_counter()
+        seconds = _build.build()
+        log(f"phase 1: built {list(seconds)} in "
+            f"{time.perf_counter() - t0:.1f} s (per nvcc: "
+            f"{ {k: round(v, 1) for k, v in seconds.items()} })")
+        for name in _build.SOURCES:
+            for line in _build.build_log(name).splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"phase 1: {name}: {line.strip()}")
+    except Exception:
+        traceback.print_exc()
+        failures.append("build")
+    phases = [("kernels", phase_kernels), ("main path", phase_main_path),
+              ("em agreement", phase_em_agreement), ("times", phase_times),
+              ("trace", phase_trace)]
+    for name, fn in phases:
+        if failures:
+            log(f"skipping phase {name!r} after a failure")
+            continue
+        try:
+            fn(dev, report)
+        except Exception:
+            traceback.print_exc()
+            failures.append(name)
+    if failures:
+        print(f"chip_smoke.py: FAILED phases: {failures}", file=sys.stderr)
+        return 1
+    log(f"main path wall time {report['total_s']:.3f} s (fit "
+        f"{report['fit_s']:.3f} s); global ll {report['ll']:.6f}, central ll "
+        f"{report['ll_central']:.6f}, AUC-PR {report['auc']:.6f}")
+    log(json.dumps({"kernels": report["kernels"]}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,196 @@
+"""`FitConfig`, the one training configuration every estimator consumes,
+and the backend and device resolvers the engine shares (port of
+``repro/core/config.py``, resident half: no ``DataSource`` arm and no
+``init`` field, since the main path always initializes from k-means).
+
+The port adds ``device``. Entry points run on ``"cuda"`` unless the caller
+asks for ``"cpu"``; asking for CUDA where there is none raises, and nothing
+carries on on the CPU instead.
+"""
+from __future__ import annotations
+
+import dataclasses
+import zlib
+from typing import Union
+
+import numpy as np
+import torch
+
+ENGINE_BACKENDS = ("auto", "reference", "fused")
+COVARIANCE_TYPES = ("diag", "full")
+
+TOL_DEFAULTS = {"em": 1e-3, "kmeans": 1e-4}
+MAX_ITER_DEFAULTS = {"em": 200, "kmeans": 100}
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on. CUDA must be present when asked
+    for. On CUDA, float32 matmuls are pinned to full float32 (no TF32): the
+    identity ``x²@A + x@B + c`` cancels large terms."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device 'cuda' was asked for but torch.cuda.is_available() "
+                "is False; pass device='cpu' to run on the CPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    elif device.type != "cpu":
+        raise ValueError(f"device must be 'cuda' or 'cpu', got {device}")
+    return device
+
+
+def fused_native(device: torch.device) -> bool:
+    """True where the hand-written kernels run: a CUDA device of compute
+    capability 9.x (Hopper, built for sm_90a)."""
+    device = torch.device(device)
+    return (device.type == "cuda"
+            and torch.cuda.get_device_capability(device)[0] == 9)
+
+
+def resolve_backend(backend: str, device, fused_supported: bool = True) -> str:
+    """Resolve the engine knob to a concrete implementation.
+
+    ``auto`` picks ``fused`` (the CUDA kernels) on a Hopper card and
+    ``reference`` (eager torch ops) on the CPU; on any other CUDA card it
+    raises, since the kernels are built for sm_90a only and the plain path
+    there must be asked for by name. An explicit ``fused`` on CPU tensors
+    runs the kernels' plain versions through the same packing, which is how
+    the CPU tests reach that path. Ops whose kernel does not support the
+    configuration (``fused_supported=False``, full covariance) run the
+    reference.
+    """
+    if backend not in ENGINE_BACKENDS:
+        raise ValueError(f"engine backend must be one of {ENGINE_BACKENDS}, "
+                         f"got {backend!r}")
+    if not fused_supported:
+        return "reference"
+    if backend == "auto":
+        device = torch.device(device)
+        if device.type == "cpu":
+            return "reference"
+        if fused_native(device):
+            return "fused"
+        raise RuntimeError(
+            f"backend 'auto' found a CUDA device of capability "
+            f"{torch.cuda.get_device_capability(device)}; the kernels are "
+            f"built for 9.x (sm_90a) only. Pass backend='reference' to run "
+            f"the plain PyTorch path on this card")
+    return backend
+
+
+def resolve_estep_backend(estep_backend: str, is_diagonal: bool,
+                          device) -> str:
+    """E-step flavour of :func:`resolve_backend`: the fused kernel only
+    implements diagonal covariance."""
+    return resolve_backend(estep_backend, device, fused_supported=is_diagonal)
+
+
+def derive_seed(seed: int, *path) -> int:
+    """The seed of one stage or member below ``seed`` (the port's
+    ``jax.random.fold_in``): ``path`` holds stage names and member
+    indices, e.g. ``derive_seed(seed, "local", client)``."""
+    words = [int(seed)] + [zlib.crc32(p.encode()) if isinstance(p, str)
+                           else int(p) for p in path]
+    state = np.random.SeedSequence(words).generate_state(1, np.uint64)
+    return int(state[0] >> np.uint64(1))
+
+
+def make_generator(seed: int, device="cpu") -> torch.Generator:
+    """An explicit torch generator on ``device``, seeded with ``seed``."""
+    gen = torch.Generator(device=torch.device(device))
+    gen.manual_seed(int(seed))
+    return gen
+
+
+def _integral(value, name: str, minimum: int) -> int:
+    if isinstance(value, bool) or int(value) != value:
+        raise ValueError(f"{name} must be an integer, got {value!r}")
+    if int(value) < minimum:
+        raise ValueError(f"{name} must be >= {minimum}, got {value}")
+    return int(value)
+
+
+@dataclasses.dataclass(frozen=True)
+class FitConfig:
+    """Frozen, validated-at-construction training configuration.
+
+    backend : "auto" | "reference" | "fused" (see :func:`resolve_backend`);
+        the E-step, the k-means assignment and scoring all follow it.
+    chunk_size : "auto" (full batch) or a positive int (rows per chunk of
+        the streaming engine, O(chunk·K) working set).
+    covariance_type : "diag" | "full".
+    reg_covar : covariance floor added at every M-step.
+    tol, max_iter : "auto" resolves per algorithm (:data:`TOL_DEFAULTS`,
+        :data:`MAX_ITER_DEFAULTS`); explicit values apply everywhere.
+    seed : the root of every generator an estimator derives.
+    device : "cuda" (default) or "cpu".
+    """
+
+    backend: str = "auto"
+    chunk_size: Union[int, str] = "auto"
+    covariance_type: str = "diag"
+    reg_covar: float = 1e-6
+    tol: Union[float, str] = "auto"
+    max_iter: Union[int, str] = "auto"
+    seed: int = 0
+    device: str = "cuda"
+
+    def __post_init__(self):
+        if self.backend not in ENGINE_BACKENDS:
+            raise ValueError(f"engine backend must be one of "
+                             f"{ENGINE_BACKENDS}, got {self.backend!r}")
+        if self.chunk_size != "auto":
+            if isinstance(self.chunk_size, str):
+                raise ValueError(f"chunk_size must be 'auto' or a positive "
+                                 f"int, got {self.chunk_size!r}")
+            object.__setattr__(self, "chunk_size",
+                               _integral(self.chunk_size, "chunk_size", 1))
+        if self.covariance_type not in COVARIANCE_TYPES:
+            raise ValueError(f"covariance_type must be one of "
+                             f"{COVARIANCE_TYPES}, got "
+                             f"{self.covariance_type!r}")
+        if not float(self.reg_covar) >= 0.0:
+            raise ValueError(f"reg_covar must be >= 0, got {self.reg_covar}")
+        object.__setattr__(self, "reg_covar", float(self.reg_covar))
+        if self.tol != "auto":
+            if isinstance(self.tol, str) or not float(self.tol) >= 0.0:
+                raise ValueError(f"tol must be 'auto' or a float >= 0, "
+                                 f"got {self.tol!r}")
+            object.__setattr__(self, "tol", float(self.tol))
+        if self.max_iter != "auto":
+            if isinstance(self.max_iter, str):
+                raise ValueError(f"max_iter must be 'auto' or an integer "
+                                 f">= 1, got {self.max_iter!r}")
+            object.__setattr__(self, "max_iter",
+                               _integral(self.max_iter, "max_iter", 1))
+        object.__setattr__(self, "seed", _integral(self.seed, "seed", 0))
+        try:
+            kind = torch.device(self.device).type
+        except RuntimeError:
+            kind = None
+        if kind not in ("cuda", "cpu"):
+            raise ValueError(f"device must be 'cuda' or 'cpu', "
+                             f"got {self.device!r}")
+
+    def resolve_chunk(self):
+        """``None`` (full batch) under "auto", else the int chunk."""
+        return None if self.chunk_size == "auto" else self.chunk_size
+
+    def resolve_tol(self, algorithm: str = "em") -> float:
+        return TOL_DEFAULTS[algorithm] if self.tol == "auto" else self.tol
+
+    def resolve_max_iter(self, algorithm: str = "em") -> int:
+        return (MAX_ITER_DEFAULTS[algorithm] if self.max_iter == "auto"
+                else self.max_iter)
+
+    def resolve_device(self) -> torch.device:
+        return resolve_device(self.device)
+
+    @property
+    def is_diagonal(self) -> bool:
+        return self.covariance_type == "diag"
+
+    def replace(self, **changes) -> "FitConfig":
+        """A new validated config with the given fields replaced."""
+        return dataclasses.replace(self, **changes)

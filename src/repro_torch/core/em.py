@@ -1,0 +1,419 @@
+"""Expectation-Maximization for GMMs (port of ``repro/core/em.py``,
+resident-array half), plus the streaming-statistics engine.
+
+The engine runs on *stacked* problems: rows ``x (B, N, d)`` with weights
+``w (B, N)`` and one model per member, every leaf with a leading axis B.
+That axis is what ``jax.vmap`` gave the JAX package: the local fits of all
+clients are one batch (one E-step launch per iteration), and a single fit is
+a batch of one. The public functions take either form; a 2-D ``x`` is
+lifted to a batch of one and the result is lowered again.
+
+Sample weights make padded client datasets fixed-shape (weight 0 =
+padding), and let the engine pad row counts to chunk boundaries for free:
+zero-weight rows add exact zeros to every statistic. ``chunk_size`` streams
+any reduction in fixed-size row chunks, in chunk order, with an
+O(chunk·K) working set.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from repro_torch.core.config import (FitConfig, resolve_backend,
+                                     resolve_estep_backend)
+from repro_torch.core.gmm import GMM
+
+
+class EMResult(NamedTuple):
+    gmm: GMM
+    log_likelihood: torch.Tensor  # final average log-likelihood
+    n_iter: torch.Tensor
+    converged: torch.Tensor
+
+
+class SufficientStats(NamedTuple):
+    """Weighted sufficient statistics of one E-step (leading batch axes
+    allowed on every field).
+
+    s0 : (K,)     sum_n w_n r_nk
+    s1 : (K, d)   sum_n w_n r_nk x_n
+    s2 : (K, d) or (K, d, d)   sum_n w_n r_nk x_n x_n(^T)
+    loglik : ()   weighted total log-likelihood
+    wsum : ()     total sample weight
+    """
+    s0: torch.Tensor
+    s1: torch.Tensor
+    s2: torch.Tensor
+    loglik: torch.Tensor
+    wsum: torch.Tensor
+
+
+# ----------------------------------------------------------------------
+# Batch lifting
+# ----------------------------------------------------------------------
+
+def _lift(gmm: GMM) -> GMM:
+    return GMM(gmm.weights[None], gmm.means[None], gmm.covs[None])
+
+
+def _first(tup):
+    """Member 0 of every field of a stats tuple."""
+    vals = [t[0] for t in tup]
+    return type(tup)(*vals) if hasattr(tup, "_fields") else tuple(vals)
+
+
+def _weights(x: torch.Tensor, sample_weight) -> torch.Tensor:
+    """Row weights aligned with ``x``: ones, or ``sample_weight`` on x's
+    device and dtype."""
+    if sample_weight is None:
+        return torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device)
+    return torch.as_tensor(sample_weight, dtype=x.dtype, device=x.device)
+
+
+def _select(mask: torch.Tensor, new: torch.Tensor,
+            old: torch.Tensor) -> torch.Tensor:
+    """Per-member ``where``: ``mask`` (B,) picks ``new`` over ``old``."""
+    return torch.where(mask.view((-1,) + (1,) * (new.ndim - 1)), new, old)
+
+
+# ----------------------------------------------------------------------
+# Streaming-statistics engine
+# ----------------------------------------------------------------------
+
+def _tree_add(a, b):
+    vals = [u + v for u, v in zip(a, b)]
+    return type(a)(*vals) if hasattr(a, "_fields") else tuple(vals)
+
+
+def streaming_map_reduce(block_fn: Callable, arrays, chunk_size: int):
+    """Run ``block_fn`` over fixed-size row chunks of ``arrays`` (rows on
+    axis 1 of every array).
+
+    ``block_fn(*chunk_arrays) -> (stats, per_row)``: ``stats`` is an
+    additive tuple (summed over chunks in chunk order, pass ``()`` for
+    map-only) and ``per_row`` a tuple of (B, chunk, ...) outputs
+    (concatenated and cut back to N rows, pass ``()`` for reduce-only).
+    The last chunk is zero-padded; padded rows carry weight 0.
+    """
+    chunk_size = int(chunk_size)
+    if chunk_size <= 0:
+        raise ValueError(f"chunk_size must be positive, got {chunk_size}")
+    n = arrays[0].shape[1]
+    n_chunks = -(-n // chunk_size)
+    pad = n_chunks * chunk_size - n
+    if pad:
+        arrays = [torch.cat([a, a.new_zeros((a.shape[0], pad) + a.shape[2:])],
+                            dim=1) for a in arrays]
+    acc, parts = None, []
+    for i in range(n_chunks):
+        sl = slice(i * chunk_size, (i + 1) * chunk_size)
+        stats, rows = block_fn(*(a[:, sl] for a in arrays))
+        acc = stats if acc is None else _tree_add(acc, stats)
+        parts.append(rows)
+    rows = tuple(torch.cat(p, dim=1)[:, :n] for p in zip(*parts))
+    return acc, rows
+
+
+def streaming_reduce(block_fn: Callable, arrays, chunk_size: int):
+    """Reduce-only :func:`streaming_map_reduce`."""
+    stats, _ = streaming_map_reduce(lambda *a: (block_fn(*a), ()), arrays,
+                                    chunk_size)
+    return stats
+
+
+def reduce_rows(block_fn: Callable, arrays,
+                chunk_size: Optional[int] = None):
+    """THE chunk dispatch: ``None`` runs one full-batch call, an integer
+    streams fixed-size chunks through :func:`streaming_reduce`."""
+    if chunk_size is None:
+        return block_fn(*arrays)
+    return streaming_reduce(block_fn, arrays, chunk_size)
+
+
+# ----------------------------------------------------------------------
+# E / M steps
+# ----------------------------------------------------------------------
+
+def _e_step_stats_reference(gmm: GMM, x: torch.Tensor,
+                            w: torch.Tensor) -> SufficientStats:
+    """Eager E-step: materializes the (.., N, K) responsibility matrix."""
+    lp = gmm.component_log_prob(x) + torch.log(gmm.weights).unsqueeze(-2)
+    log_norm = torch.logsumexp(lp, dim=-1)
+    resp = torch.exp(lp - log_norm.unsqueeze(-1)) * w.unsqueeze(-1)
+    rt = resp.transpose(-1, -2)
+    if gmm.is_diagonal:
+        s2 = rt @ (x * x)
+    else:
+        s2 = torch.einsum("...nk,...ni,...nj->...kij", resp, x, x)
+    return SufficientStats(resp.sum(dim=-2), rt @ x, s2,
+                           torch.sum(log_norm * w, dim=-1), w.sum(dim=-1))
+
+
+def e_step_stats_fused(gmm: GMM, x: torch.Tensor,
+                       sample_weight: Optional[torch.Tensor] = None
+                       ) -> SufficientStats:
+    """Kernel-backed E-step (diagonal covariance only): the CUDA
+    ``estep_stats`` kernel fuses log-pdf, softmax and the reductions, so the
+    (N, K) responsibility matrix never reaches device memory. Takes one
+    model with x (N, d) or a batch with x (B, N, d)."""
+    from repro_torch.kernels import ops
+    if not gmm.is_diagonal:
+        raise ValueError("the fused E-step kernel supports diagonal "
+                         "covariance only")
+    w = _weights(x, sample_weight)
+    s0, s1, s2, ll = ops.estep_stats(x, gmm.means, gmm.covs,
+                                     torch.log(gmm.weights), w)
+    return SufficientStats(s0, s1, s2, ll, w.sum(dim=-1))
+
+
+def _e_step_batched(gmm: GMM, x: torch.Tensor, w: torch.Tensor,
+                    backend: str, chunk_size: Optional[int]
+                    ) -> SufficientStats:
+    if backend == "fused":
+        block = lambda xb, wb: e_step_stats_fused(gmm, xb, wb)
+    else:
+        block = lambda xb, wb: _e_step_stats_reference(gmm, xb, wb)
+    return reduce_rows(block, (x, w), chunk_size)
+
+
+def e_step_stats(gmm: GMM, x: torch.Tensor,
+                 sample_weight: Optional[torch.Tensor] = None,
+                 estep_backend: str = "auto",
+                 chunk_size: Optional[int] = None) -> SufficientStats:
+    """One E-step: responsibilities -> sufficient statistics.
+
+    ``estep_backend`` picks the eager reference or the fused kernel;
+    ``chunk_size`` streams either through the engine in O(chunk·K) memory.
+    ``x`` is (N, d) with one model, or (B, N, d) with a stacked model.
+    """
+    backend = resolve_estep_backend(estep_backend, gmm.is_diagonal, x.device)
+    w = _weights(x, sample_weight)
+    if x.ndim == 2:
+        return _first(_e_step_batched(_lift(gmm), x[None], w[None], backend,
+                                      chunk_size))
+    return _e_step_batched(gmm, x, w, backend, chunk_size)
+
+
+def m_step(stats: SufficientStats, reg_covar: float = 1e-6) -> GMM:
+    """M-step from (possibly aggregated, possibly stacked) statistics."""
+    s0 = torch.clamp(stats.s0, min=1e-10)
+    weights = stats.s0 / torch.clamp(stats.wsum, min=1e-12).unsqueeze(-1)
+    weights = weights / weights.sum(dim=-1, keepdim=True)
+    means = stats.s1 / s0.unsqueeze(-1)
+    if stats.s2.ndim == stats.s1.ndim:  # diagonal
+        covs = stats.s2 / s0.unsqueeze(-1) - means * means
+        covs = torch.clamp(covs, min=0.0) + reg_covar
+    else:
+        outer = torch.einsum("...ki,...kj->...kij", means, means)
+        covs = stats.s2 / s0[..., None, None] - outer
+        # robustness against component collapse: symmetrize, sanitize
+        # non-finite entries, floor the diagonal
+        covs = 0.5 * (covs + covs.transpose(-1, -2))
+        covs = torch.where(torch.isfinite(covs), covs, 0.0)
+        d = means.shape[-1]
+        eye = torch.eye(d, dtype=means.dtype, device=means.device)
+        covs = covs + reg_covar * eye
+        diag = torch.clamp(torch.diagonal(covs, dim1=-2, dim2=-1),
+                           min=reg_covar)
+        covs = covs * (1.0 - eye) + diag.unsqueeze(-1) * eye
+    means = torch.where(torch.isfinite(means), means, 0.0)
+    return GMM(weights, means, covs)
+
+
+def em_step(gmm: GMM, x: torch.Tensor,
+            sample_weight: Optional[torch.Tensor] = None,
+            reg_covar: float = 1e-6, estep_backend: str = "auto",
+            chunk_size: Optional[int] = None) -> tuple[GMM, torch.Tensor]:
+    """One full EM iteration. Returns (new_gmm, avg_loglik_of_old_gmm)."""
+    stats = e_step_stats(gmm, x, sample_weight, estep_backend, chunk_size)
+    avg_ll = stats.loglik / torch.clamp(stats.wsum, min=1e-12)
+    return m_step(stats, reg_covar), avg_ll
+
+
+# ----------------------------------------------------------------------
+# Streaming scoring: log-likelihood and BIC without the (N, K) matrix
+# ----------------------------------------------------------------------
+
+def _log_prob_block(gmm: GMM, xb: torch.Tensor, backend: str) -> torch.Tensor:
+    """Mixture log density of one row block, (R, d) -> (R,). The fused
+    backend takes the (R, K) per-component density from the CUDA
+    ``gmm_logpdf`` kernel (diagonal only); reference uses
+    ``GMM.log_prob``."""
+    if backend == "fused":
+        from repro_torch.kernels import ops
+        lp = ops.gmm_logpdf(xb, gmm.means, gmm.covs, torch.log(gmm.weights))
+        return torch.logsumexp(lp, dim=-1).to(xb.dtype)
+    return gmm.log_prob(xb)
+
+
+def log_prob_chunked(gmm: GMM, x: torch.Tensor,
+                     chunk_size: Optional[int] = 4096,
+                     backend: str = "auto") -> torch.Tensor:
+    """``GMM.log_prob`` in fixed-size row chunks -> (N,). ``None`` runs one
+    full-batch block with the same backend resolution."""
+    backend = resolve_backend(backend, x.device, gmm.is_diagonal)
+    if chunk_size is None:
+        return _log_prob_block(gmm, x, backend)
+    _, (lp,) = streaming_map_reduce(
+        lambda xb: ((), (_log_prob_block(gmm, xb[0], backend)[None],)),
+        (x[None],), chunk_size)
+    return lp[0]
+
+
+def _score_sums(gmm: GMM, x: torch.Tensor,
+                sample_weight: Optional[torch.Tensor],
+                chunk_size: Optional[int], backend: str):
+    """(sum_n w_n log p(x_n), sum_n w_n) through the engine."""
+    backend = resolve_backend(backend, x.device, gmm.is_diagonal)
+    w = _weights(x, sample_weight)
+
+    def block(xb, wb):
+        lp = _log_prob_block(gmm, xb[0], backend)
+        return torch.sum(lp * wb[0])[None], wb.sum(dim=-1)
+
+    total, wsum = reduce_rows(block, (x[None], w[None]), chunk_size)
+    return total[0], wsum[0]
+
+
+def score_streaming(gmm: GMM, x: torch.Tensor,
+                    sample_weight: Optional[torch.Tensor] = None,
+                    chunk_size: Optional[int] = 4096,
+                    backend: str = "auto") -> torch.Tensor:
+    """Average log-likelihood (the paper's fitness score, Eq. 2) in
+    O(chunk·K) memory. Equals ``GMM.score`` up to summation order."""
+    total, wsum = _score_sums(gmm, x, sample_weight, chunk_size, backend)
+    return total / torch.clamp(wsum, min=1e-12)
+
+
+def bic_streaming(gmm: GMM, x: torch.Tensor,
+                  sample_weight: Optional[torch.Tensor] = None,
+                  chunk_size: Optional[int] = 4096,
+                  backend: str = "auto") -> torch.Tensor:
+    """Bayesian Information Criterion in O(chunk·K) memory (lower is
+    better). Equals ``GMM.bic`` up to summation order."""
+    total, wsum = _score_sums(gmm, x, sample_weight, chunk_size, backend)
+    return gmm.n_free_params() * torch.log(wsum) - 2.0 * total
+
+
+# ----------------------------------------------------------------------
+# Initialization
+# ----------------------------------------------------------------------
+
+def label_stats(x: torch.Tensor, assignments: torch.Tensor, k: int,
+                sample_weight: Optional[torch.Tensor] = None,
+                covariance_type: str = "diag",
+                chunk_size: Optional[int] = None) -> SufficientStats:
+    """Hard-assignment sufficient statistics via weighted one-hot matmuls
+    (``oh.T @ xb``), ``chunk_size`` bounding the working set to one
+    (chunk, K) block. x (N, d) or (B, N, d), assignments aligned with it."""
+    w = _weights(x, sample_weight)
+    if x.ndim == 2:
+        return _first(label_stats(x[None], assignments[None], k, w[None],
+                                  covariance_type, chunk_size))
+    cols = torch.arange(k, device=x.device)
+
+    def block(xb, wb, ab):
+        oh = (ab.unsqueeze(-1) == cols).to(xb.dtype) * wb.unsqueeze(-1)
+        ot = oh.transpose(-1, -2)
+        if covariance_type == "diag":
+            s2 = ot @ (xb * xb)
+        else:
+            s2 = torch.einsum("...nk,...ni,...nj->...kij", oh, xb, xb)
+        return SufficientStats(oh.sum(dim=-2), ot @ xb, s2,
+                               xb.new_zeros(xb.shape[0]), wb.sum(dim=-1))
+
+    return reduce_rows(block, (x, w, assignments), chunk_size)
+
+
+def init_from_kmeans(seed: int, x: torch.Tensor, k: int,
+                     sample_weight: Optional[torch.Tensor] = None,
+                     covariance_type: str = "diag",
+                     reg_covar: float = 1e-6,
+                     chunk_size: Optional[int] = None,
+                     assign_backend: str = "auto") -> GMM:
+    """sklearn-style init: k-means labels -> label stats -> M-step. A batch
+    x (B, N, d) gives a stacked model, member b seeded from
+    ``derive_seed(seed, b)``."""
+    from repro_torch.core.kmeans import kmeans_multi
+    w = _weights(x, sample_weight)
+    res = kmeans_multi(seed, x, k, sample_weight=w, max_iter=50,
+                       chunk_size=chunk_size, assign_backend=assign_backend)
+    stats = label_stats(x, res.assignments, k, w, covariance_type,
+                        chunk_size)
+    return m_step(stats, reg_covar)
+
+
+# ----------------------------------------------------------------------
+# Full EM fit
+# ----------------------------------------------------------------------
+
+def _em_loop(gmm0: GMM, x: torch.Tensor, w: torch.Tensor, tol: float,
+             reg_covar: float, max_iter: int, backend: str,
+             chunk_size: Optional[int]):
+    """The convergence loop of ``jax.vmap(_em_loop)``, on stacked members.
+
+    One bootstrap step, then steps while any member is active. A member is
+    active while ``it < max_iter`` and its |Δ avg-loglik| > ``tol``; once
+    it stops, its state is frozen, exactly as the vmapped ``while_loop``
+    freezes it. Reading ``active.any()`` syncs the device once per
+    iteration.
+    """
+    def step(gmm):
+        return em_step(gmm, x, w, reg_covar, backend, chunk_size)
+
+    gmm, ll = step(gmm0)
+    prev_ll = torch.full_like(ll, float("-inf"))
+    it = torch.ones(ll.shape, dtype=torch.int64, device=ll.device)
+    active = (it < max_iter) & (torch.abs(ll - prev_ll) > tol)
+    while bool(active.any()):
+        new_gmm, avg_ll = step(gmm)
+        gmm = GMM(*(_select(active, n, o) for n, o in
+                    zip((new_gmm.weights, new_gmm.means, new_gmm.covs),
+                        (gmm.weights, gmm.means, gmm.covs))))
+        prev_ll = torch.where(active, ll, prev_ll)
+        ll = torch.where(active, avg_ll, ll)
+        it = it + active.to(it.dtype)
+        active = (it < max_iter) & (torch.abs(ll - prev_ll) > tol)
+    converged = torch.abs(ll - prev_ll) <= tol
+    return gmm, ll, it, converged
+
+
+def fit_gmm_cfg(seed: int, x, k: int, config: FitConfig,
+                sample_weight=None, init_gmm: Optional[GMM] = None
+                ) -> EMResult:
+    """Train a GMM with EM until the avg-loglik delta drops below the
+    config's ``tol`` (the paper's convergence criterion, 1e-3).
+
+    ``x`` is (N, d), or a batch (B, N, d) of independent fits (the local
+    fits of a padded client split, ``sample_weight`` (B, N) masking the
+    padding); the result is then stacked. ``init_gmm`` skips the k-means
+    init. ``config.backend`` selects the E-step and the k-means assignment
+    implementation; an integer ``config.chunk_size`` streams the init and
+    every E-step.
+    """
+    device = config.resolve_device()
+    backend = resolve_estep_backend(
+        config.backend,
+        config.is_diagonal if init_gmm is None else init_gmm.is_diagonal,
+        device)
+    x = torch.as_tensor(x, device=device).to(torch.float32)
+    w = _weights(x, sample_weight)
+    single = x.ndim == 2
+    if single:
+        x, w = x[None], w[None]
+    cs = config.resolve_chunk()
+    if init_gmm is None:
+        init_gmm = init_from_kmeans(seed, x, k, w, config.covariance_type,
+                                    config.reg_covar, chunk_size=cs,
+                                    assign_backend=config.backend)
+    else:
+        init_gmm = init_gmm.to(device)
+        if single:
+            init_gmm = _lift(init_gmm)
+    gmm, ll, it, converged = _em_loop(
+        init_gmm, x, w, config.resolve_tol("em"), config.reg_covar,
+        config.resolve_max_iter("em"), backend, cs)
+    if single:
+        return EMResult(gmm[0], ll[0], it[0], converged[0])
+    return EMResult(gmm, ll, it, converged)

@@ -1,0 +1,301 @@
+"""K-means: k-means++ seeding and weighted Lloyd iterations (port of
+``repro/core/kmeans.py``, resident half).
+
+Like the EM engine, everything here runs on stacked problems: rows
+``x (B, N, d)``, weights ``w (B, N)``, centers ``(B, K, d)``. The B axis
+stands in for ``jax.vmap``: the k-means inits of all clients, and all
+``n_init`` restarts of each, run as one batch, one assignment launch per
+sweep. A member stops iterating when its own center shift drops to
+``tol``, and its centers are frozen from then on, as under vmap.
+
+Random draws come from explicit torch generators: member b of a call with
+``seed`` draws from ``derive_seed(seed, b)`` and a stage name. The draws
+are not the JAX package's (threefry and Philox never agree), so the seeded
+stages are compared with it statistically, and the deterministic ones
+(``init_centers=``) exactly.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.core.config import (derive_seed, make_generator,
+                                     resolve_backend)
+from repro_torch.core.em import (_weights, _select, reduce_rows,
+                                 streaming_map_reduce)
+
+# Rows the k-means++ seeding works from when the dataset is larger (the
+# Lloyd sweeps still see every row).
+SEED_ROWS = 16384
+
+# Lockstep Lloyd sweeps every restart runs before kmeans_multi keeps the
+# best seed.
+PILOT_ITERS = 3
+
+# Full-data Lloyd budget of kmeans_multi's refine stage beyond SEED_ROWS.
+REFINE_ITERS = 10
+
+
+class KMeansResult(NamedTuple):
+    centers: torch.Tensor        # (K, d)
+    assignments: torch.Tensor    # (N,)
+    inertia: torch.Tensor        # ()
+    n_iter: torch.Tensor         # ()
+    cluster_sizes: torch.Tensor  # (K,) sum of sample weights per cluster
+
+
+def _sq_dists(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """Squared euclidean distances (.., N, K) via the matmul identity."""
+    x2 = torch.sum(x * x, dim=-1, keepdim=True)
+    c2 = torch.sum(centers * centers, dim=-1).unsqueeze(-2)
+    return torch.clamp(x2 - 2.0 * (x @ centers.transpose(-1, -2)) + c2,
+                       min=0.0)
+
+
+def _assign_block(xb: torch.Tensor, centers: torch.Tensor, backend: str):
+    """Nearest-center assignment of one row block -> (int32 index, d2).
+    ``fused`` launches the CUDA ``kmeans_assign`` kernel, reference uses the
+    matmul identity; ties go to the first index either way."""
+    if backend == "fused":
+        from repro_torch.kernels import ops
+        return ops.kmeans_assign(xb, centers)
+    dists = _sq_dists(xb, centers)
+    return (torch.argmin(dists, dim=-1).to(torch.int32),
+            dists.min(dim=-1).values)
+
+
+def _labels_onehot(idx: torch.Tensor, k: int, wb: torch.Tensor,
+                   dtype) -> torch.Tensor:
+    """Weighted one-hot (.., R, K) of an assignment vector, so per-cluster
+    sums are matmuls (``oh.T @ xb``)."""
+    cols = torch.arange(k, device=idx.device)
+    return (idx.unsqueeze(-1) == cols).to(dtype) * wb.unsqueeze(-1)
+
+
+def _sweep_block(xb: torch.Tensor, wb: torch.Tensor, centers: torch.Tensor,
+                 backend: str):
+    """Weighted Lloyd-sweep statistics of one block:
+    (counts (.., K), sums (.., K, d), inertia (..))."""
+    idx, d2 = _assign_block(xb, centers, backend)
+    oh = _labels_onehot(idx, centers.shape[-2], wb, xb.dtype)
+    return oh.sum(dim=-2), oh.transpose(-1, -2) @ xb, torch.sum(d2 * wb,
+                                                                 dim=-1)
+
+
+def _update_block(xb: torch.Tensor, wb: torch.Tensor, centers: torch.Tensor,
+                  backend: str):
+    """counts/sums only: the Lloyd loop never reads inertia, so the
+    reference assignment reduces to ``argmax(x·c - |c|²/2)``."""
+    if backend == "fused":
+        idx, _ = _assign_block(xb, centers, backend)
+    else:
+        score = xb @ centers.transpose(-1, -2) - 0.5 * torch.sum(
+            centers * centers, dim=-1).unsqueeze(-2)
+        idx = torch.argmax(score, dim=-1)
+    oh = _labels_onehot(idx, centers.shape[-2], wb, xb.dtype)
+    return oh.sum(dim=-2), oh.transpose(-1, -2) @ xb
+
+
+# ----------------------------------------------------------------------
+# Seeding
+# ----------------------------------------------------------------------
+
+def _member_seeds(seed: int, b: int) -> list[int]:
+    return [derive_seed(seed, i) for i in range(b)]
+
+
+def _uniforms(seeds, stage: str, shape: tuple, device) -> torch.Tensor:
+    """(B, *shape) float64 uniforms in [0, 1), member b from its own
+    generator."""
+    return torch.stack([
+        torch.rand(shape, generator=make_generator(derive_seed(s, stage)),
+                   dtype=torch.float64) for s in seeds]).to(device)
+
+
+def _categorical(p: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """One draw per member with probability ∝ ``p`` (B, N), by inverting
+    the float64 CDF at the uniforms ``u`` (B,)."""
+    cdf = torch.cumsum(p.to(torch.float64), dim=-1)
+    t = (u * cdf[:, -1]).unsqueeze(-1)
+    idx = torch.searchsorted(cdf, t, right=True).squeeze(-1)
+    return torch.clamp(idx, max=p.shape[-1] - 1)
+
+
+def _kmeanspp(x: torch.Tensor, w: torch.Tensor, k: int,
+              u: torch.Tensor) -> torch.Tensor:
+    """Batched k-means++ from pre-drawn uniforms ``u`` (B, k) -> (B, k, d).
+    Zero-weight (padded) rows are never drawn."""
+    b, _, d = x.shape
+    rows = torch.arange(b, device=x.device)
+    first = _categorical(torch.clamp(w, min=1e-30), u[:, 0])
+    c = x[rows, first]
+    centers = x.new_zeros((b, k, d))
+    centers[:, 0] = c
+    min_d = torch.sum((x - c.unsqueeze(1)) ** 2, dim=-1)
+    for i in range(1, k):
+        idx = _categorical(torch.clamp(min_d * w, min=1e-30), u[:, i])
+        c = x[rows, idx]
+        centers[:, i] = c
+        min_d = torch.minimum(min_d, torch.sum((x - c.unsqueeze(1)) ** 2,
+                                               dim=-1))
+    return centers
+
+
+def _subsample(seeds, stage: str, x: torch.Tensor, w: torch.Tensor,
+               rows: int):
+    """A uniform row subsample (with replacement) per member; weights ride
+    along."""
+    n, d = x.shape[1], x.shape[2]
+    idx = torch.stack([
+        torch.randint(0, n, (rows,),
+                      generator=make_generator(derive_seed(s, stage)))
+        for s in seeds]).to(x.device)
+    return (torch.gather(x, 1, idx.unsqueeze(-1).expand(-1, -1, d)),
+            torch.gather(w, 1, idx))
+
+
+def _seed_centers(seeds, x: torch.Tensor, w: torch.Tensor, k: int,
+                  seed_rows: int) -> torch.Tensor:
+    """k-means++ over a uniform row subsample once N exceeds
+    ``seed_rows``; over every row below that."""
+    if x.shape[1] > seed_rows:
+        x, w = _subsample(seeds, "seed-rows", x, w, seed_rows)
+    return _kmeanspp(x, w, k, _uniforms(seeds, "kmeans++", (k,), x.device))
+
+
+def kmeans_plusplus(seed: int, x: torch.Tensor, k: int,
+                    sample_weight: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """k-means++ seeding -> (k, d), or (B, k, d) for a batch x (B, N, d).
+    Supports zero-weighted (padded) rows."""
+    w = _weights(x, sample_weight)
+    if x.ndim == 2:
+        return kmeans_plusplus(seed, x[None], k, w[None])[0]
+    seeds = _member_seeds(seed, x.shape[0])
+    return _kmeanspp(x, w, k, _uniforms(seeds, "kmeans++", (k,), x.device))
+
+
+# ----------------------------------------------------------------------
+# Lloyd
+# ----------------------------------------------------------------------
+
+def _lloyd(x: torch.Tensor, w: torch.Tensor, centers: torch.Tensor,
+           max_iter: int, tol: float, chunk_size: Optional[int],
+           backend: str) -> KMeansResult:
+    """Batched Lloyd's algorithm from ``centers`` (B, k, d): each member
+    sweeps while ``it < max_iter`` and its squared center shift > ``tol``.
+    Assignments, inertia and sizes come from a final sweep against the
+    returned centers."""
+    def sweep_stats(c):
+        return reduce_rows(lambda xb, wb: _update_block(xb, wb, c, backend),
+                           (x, w), chunk_size)
+
+    b = x.shape[0]
+    it = torch.zeros(b, dtype=torch.int64, device=x.device)
+    shift = torch.full((b,), float("inf"), dtype=x.dtype, device=x.device)
+    active = (it < max_iter) & (shift > tol)
+    while bool(active.any()):
+        counts, sums = sweep_stats(centers)
+        cnt = counts.unsqueeze(-1)
+        new = torch.where(cnt > 0, sums / torch.clamp(cnt, min=1e-12),
+                          centers)
+        new_shift = torch.sum((new - centers) ** 2, dim=(-1, -2))
+        centers = _select(active, new, centers)
+        shift = torch.where(active, new_shift, shift)
+        it = it + active.to(it.dtype)
+        active = (it < max_iter) & (shift > tol)
+
+    def block(xb, wb):
+        idx, d2 = _assign_block(xb, centers, backend)
+        oh = _labels_onehot(idx, centers.shape[-2], wb, xb.dtype)
+        return ((oh.sum(dim=-2), torch.sum(d2 * wb, dim=-1)), (idx,))
+
+    if chunk_size is None:
+        (counts, inertia), (assign,) = block(x, w)
+    else:
+        (counts, inertia), (assign,) = streaming_map_reduce(block, (x, w),
+                                                            chunk_size)
+    return KMeansResult(centers, assign, inertia, it, counts)
+
+
+def _lower(res: KMeansResult) -> KMeansResult:
+    return KMeansResult(*(t[0] for t in res))
+
+
+def kmeans(seed: int, x: torch.Tensor, k: int,
+           sample_weight: Optional[torch.Tensor] = None,
+           max_iter: int = 100, tol: float = 1e-4,
+           chunk_size: Optional[int] = None,
+           assign_backend: str = "auto",
+           init_centers: Optional[torch.Tensor] = None,
+           seed_rows: int = SEED_ROWS) -> KMeansResult:
+    """Weighted Lloyd's algorithm with k-means++ init. x (N, d), or a batch
+    (B, N, d) of independent problems. ``init_centers`` skips seeding."""
+    w = _weights(x, sample_weight)
+    if x.ndim == 2:
+        return _lower(kmeans(seed, x[None], k, w[None], max_iter, tol,
+                             chunk_size, assign_backend,
+                             None if init_centers is None
+                             else init_centers[None], seed_rows))
+    backend = resolve_backend(assign_backend, x.device)
+    if init_centers is None:
+        init_centers = _seed_centers(_member_seeds(seed, x.shape[0]), x, w,
+                                     k, seed_rows)
+    return _lloyd(x, w, init_centers.to(x), max_iter, tol, chunk_size,
+                  backend)
+
+
+def kmeans_multi(seed: int, x: torch.Tensor, k: int,
+                 sample_weight: Optional[torch.Tensor] = None,
+                 max_iter: int = 100, tol: float = 1e-4,
+                 n_init: int = 4,
+                 chunk_size: Optional[int] = None,
+                 assign_backend: str = "auto",
+                 pilot_iters: int = PILOT_ITERS,
+                 seed_rows: int = SEED_ROWS) -> KMeansResult:
+    """Best of ``n_init`` k-means restarts, pilot-pruned: every seed runs
+    ``pilot_iters`` fixed Lloyd sweeps (all restarts of all members in one
+    batch), the lowest pilot inertia wins, and only the winner iterates to
+    convergence. Beyond ``seed_rows`` rows the pilot and the winner's
+    convergence run on one uniform row subsample per member, followed by a
+    :data:`REFINE_ITERS` full-data polish."""
+    w = _weights(x, sample_weight)
+    if x.ndim == 2:
+        return _lower(kmeans_multi(seed, x[None], k, w[None], max_iter, tol,
+                                   n_init, chunk_size, assign_backend,
+                                   pilot_iters, seed_rows))
+    if n_init == 1:
+        return kmeans(seed, x, k, w, max_iter, tol, chunk_size,
+                      assign_backend, seed_rows=seed_rows)
+    b, n, d = x.shape
+    backend = resolve_backend(assign_backend, x.device)
+    seeds = _member_seeds(seed, b)
+    if n > seed_rows:
+        xs, ws = _subsample(seeds, "pilot-rows", x, w, seed_rows)
+        pilot_chunk = None
+    else:
+        xs, ws, pilot_chunk = x, w, chunk_size
+    xr = xs.repeat_interleave(n_init, dim=0)
+    wr = ws.repeat_interleave(n_init, dim=0)
+    u = _uniforms(seeds, "pilot", (n_init, k), x.device).reshape(-1, k)
+    centers = _kmeanspp(xr, wr, k, u)
+    inertia = torch.full((b * n_init,), float("inf"), dtype=x.dtype,
+                         device=x.device)
+    for _ in range(pilot_iters):
+        counts, sums, inertia = reduce_rows(
+            lambda xb, wb: _sweep_block(xb, wb, centers, backend), (xr, wr),
+            pilot_chunk)
+        cnt = counts.unsqueeze(-1)
+        centers = torch.where(cnt > 0, sums / torch.clamp(cnt, min=1e-12),
+                              centers)
+    best = torch.argmin(inertia.view(b, n_init), dim=-1)
+    best_centers = centers.view(b, n_init, k, d)[
+        torch.arange(b, device=x.device), best]
+    if n > seed_rows:
+        sub = _lloyd(xs, ws, best_centers, max_iter, tol, None, backend)
+        res = _lloyd(x, w, sub.centers, min(max_iter, REFINE_ITERS), tol,
+                     chunk_size, backend)
+        return res._replace(n_iter=res.n_iter + sub.n_iter + pilot_iters)
+    res = _lloyd(x, w, best_centers, max_iter, tol, chunk_size, backend)
+    return res._replace(n_iter=res.n_iter + pilot_iters)

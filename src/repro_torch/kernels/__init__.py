@@ -1,0 +1,10 @@
+"""Hand-written CUDA kernels for the EM hot path (ports of the Pallas
+kernels in ``repro.kernels``).
+
+* ``ops``: the model-level entry points (``gmm_logpdf``, ``estep_stats``,
+  ``kmeans_assign``), which pack parameters and call the wrappers;
+* ``gmm_logpdf``, ``estep_stats``, ``kmeans_assign``: one launch wrapper
+  module per kernel, each with its ``launches`` count;
+* ``ref``: the plain PyTorch versions;
+* ``_build``: builds ``csrc/*.cu`` with nvcc at first use.
+"""

@@ -1,0 +1,100 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+The kernels have no CPU mode, so every test here carries the ``cuda``
+marker and skips without a card. The file imports no JAX, so it runs on a
+machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances are those of tests/test_kernels.py (see test_torch_kernels.py).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import estep_stats, gmm_logpdf, kmeans_assign
+from repro_torch.kernels import ops, ref
+
+SHAPES = [  # (N, d, K), as tests/test_kernels.py
+    (64, 4, 2),
+    (256, 24, 30),
+    (1000, 11, 15),
+    (513, 84, 10),
+    (100, 38, 10),
+    (2048, 128, 64),
+    (17, 3, 1),
+]
+
+
+def make_inputs(rng, n, d, k):
+    x = rng.normal(0, 2, (n, d)).astype(np.float32)
+    mu = rng.normal(0, 2, (k, d)).astype(np.float32)
+    var = rng.uniform(0.05, 3.0, (k, d)).astype(np.float32)
+    lw = np.log(rng.dirichlet(np.ones(k))).astype(np.float32)
+    return x, mu, var, lw
+
+
+def t(a):
+    return torch.as_tensor(a)
+
+
+def assert_assign(idx, d2, x, centers, eidx, ed2):
+    """Equal indices wherever the nearest two centers are > 1e-4 apart."""
+    np.testing.assert_allclose(d2, ed2, rtol=1e-4, atol=1e-4)
+    dist = np.maximum((x * x).sum(1, keepdims=True) - 2 * x @ centers.T
+                      + (centers * centers).sum(1)[None], 0)
+    part = np.sort(dist, axis=1)
+    clear = (part[:, 1] - part[:, 0] > 1e-4) if dist.shape[1] > 1 \
+        else np.ones(len(x), bool)
+    assert np.all((idx == eidx) | ~clear)
+
+
+@pytest.mark.cuda
+class TestKernelLaunch:
+    """The CUDA kernels against their plain versions on the card (run by
+    ``python -m pytest -m cuda tests/test_torch_cuda.py`` there)."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+
+    @pytest.mark.parametrize("n,d,k", SHAPES)
+    def test_kernels_match_plain(self, n, d, k):
+        dev = torch.device("cuda")
+        rng = np.random.default_rng(n + k)
+        x, mu, var, lw = (t(a).to(dev) for a in make_inputs(rng, n, d, k))
+        w = t(rng.uniform(0, 1, (1, n)).astype(np.float32)).to(dev)
+        a, b, c = ops.pack_params(mu, var, lw)
+        before = gmm_logpdf.launches
+        np.testing.assert_allclose(
+            gmm_logpdf.gmm_logpdf(x, a, b, c).cpu().numpy(),
+            ref.gmm_logpdf_packed(x, a, b, c).cpu().numpy(),
+            rtol=2e-4, atol=2e-4)
+        assert gmm_logpdf.launches == before + 1
+        got = estep_stats.estep_stats(x[None], w, a[None], b[None], c[None])
+        again = estep_stats.estep_stats(x[None], w, a[None], b[None],
+                                        c[None])
+        exp = ref.estep_stats_packed(x[None], w, a[None], b[None], c[None])
+        for g, h, e, rtol, atol in zip(got, again, exp,
+                                       (1e-3, 1e-3, 1e-3, 1e-4),
+                                       (1e-4, 1e-3, 1e-3, 0.0)):
+            assert torch.equal(g, h)
+            np.testing.assert_allclose(g.cpu().numpy(), e.cpu().numpy(),
+                                       rtol=rtol, atol=atol)
+        ct = mu.T.contiguous()[None]
+        c2 = (mu * mu).sum(-1)[None]
+        idx, d2 = kmeans_assign.kmeans_assign(x[None], ct, c2)
+        eidx, ed2 = ref.kmeans_assign_packed(x[None], ct, c2)
+        assert_assign(idx[0].cpu().numpy(), d2[0].cpu().numpy(),
+                      x.cpu().numpy(), mu.cpu().numpy(),
+                      eidx[0].cpu().numpy(), ed2[0].cpu().numpy())
+
+    def test_wrapper_rejects_bad_operands(self):
+        x = torch.zeros(8, 4, device="cuda")
+        a = torch.zeros(4, 3, device="cuda")
+        with pytest.raises(ValueError):
+            gmm_logpdf.gmm_logpdf(x, a, a, torch.zeros(2, device="cuda"))
+        with pytest.raises(ValueError):
+            gmm_logpdf.gmm_logpdf(x.double(), a, a,
+                                  torch.zeros(3, device="cuda"))
