@@ -6,12 +6,15 @@ H100: the quickest proof that the port builds and runs on the card.
 
 Phases (each failure makes the exit code non-zero):
   1. device and build: the card's name and power limit, versions, and the
-     three CUDA kernels built from ``src/repro_torch/kernels/csrc`` with one
-     ``nvcc`` each, all started together;
+     three CUDA sources built from ``src/repro_torch/kernels/csrc`` with one
+     ``nvcc`` each, all started together, with each kernel's registers and
+     shared memory;
   2. every kernel against its plain PyTorch version on the card, at the
      kernel test shapes and at the main path's shapes, with the tolerances of
-     ``tests/test_kernels.py``; a tie case; two launches of the E-step kernel
-     giving the same bits;
+     ``tests/test_kernels.py``; tie cases; the E-step and the sweep kernels
+     giving the same bits in two launches; the sweep's statistics against
+     the one-hot formula on its own labels, with zero-weight rows, an empty
+     cluster and duplicated centers;
   3. the main path at the paper's MNIST width: FedGenGMM (20 clients, 60,000
      rows, d = 24, K = 30, |S| = 30,000), then scoring requests through
      ``gmm_logpdf`` (avg log-likelihood, AUC-PR), with every kernel's launch
@@ -20,8 +23,11 @@ Phases (each failure makes the exit code non-zero):
      reference backends reach final avg log-likelihoods within 1e-4 on the
      central fit and on the 20 local fits at the default tol; the local
      fits at tol 0 are reported beside a float64 witness;
-  5. kernel times at the main path's shapes against their bounds;
-  6. the main path's device time by kernel (``torch.profiler``).
+  5. kernel times at the main path's shapes against their bounds, each
+     timed twice in turns with its plain version; the sweep kernel beside
+     the assignment kernel + one-hot ops it replaces;
+  6. the main path's device time by kernel (``torch.profiler``), with the
+     count of cuBLAS GEMM launches.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the repository
@@ -58,7 +64,17 @@ KERNELS = {
                     "src/repro/kernels/estep_stats.py:25"),
     "kmeans_assign": ("src/repro_torch/kernels/csrc/kmeans_assign.cu",
                       "src/repro/kernels/kmeans_assign.py:18"),
+    "kmeans_sweep_stats": ("src/repro_torch/kernels/csrc/kmeans_assign.cu",
+                           "src/repro/kernels/kmeans_assign.py:18"),
 }
+# The kernels the fused main path launches (kmeans_assign's assignment core
+# runs there inside kmeans_sweep_stats).
+PATH_KERNELS = ("gmm_logpdf", "estep_stats", "kmeans_sweep_stats")
+# The main path's Lloyd sweep shapes (problems, rows): the local pilots (20
+# clients x 4 restarts), the local fits, the refit's pilots on its
+# SEED_ROWS subsample, the refit's full-data polish.
+SWEEP_SHAPES = [(CLIENTS * 4, N_PAD), (CLIENTS, N_PAD), (4, 16384),
+                (1, N_SYNTH)]
 
 
 class Failed(Exception):
@@ -87,7 +103,8 @@ def close(a, b, rtol, atol, what):
 
 
 def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
+    """Mean time of ``fn`` over ``reps`` back-to-back eager calls, between
+    CUDA events: the host's launch cost where it exceeds the device's."""
     import torch
     for _ in range(warmup):
         fn()
@@ -97,6 +114,29 @@ def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 30, warmup: int = 3) -> float:
+    """Mean device time of one call of ``fn``: the call captured once in a
+    CUDA graph, which is replayed ``reps`` times between CUDA events, so
+    the host's launch cost is not in it."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -155,6 +195,58 @@ def phase_kernels(dev, report):
               f"estep_stats not bit-reproducible at {(c_, n, d, k)}")
         return max(errs)
 
+    def sweep_case(bsz, n, d, k, seed):
+        """Zero-weight rows (a padded tail and every 7th row), centers
+        k-2 and k-1 duplicating centers 0 and 1 (ties go to the first
+        index), and center k-3 far away (an empty cluster)."""
+        rng = np.random.default_rng(seed)
+        x = torch.as_tensor(rng.normal(0, 2, (bsz, n, d)),
+                            dtype=torch.float32, device=dev)
+        mu = rng.normal(0, 2, (bsz, k, d))
+        if k >= 5:
+            mu[:, k - 2:] = mu[:, :2]
+            mu[:, k - 3] = 1e3
+        mu = torch.as_tensor(mu, dtype=torch.float32, device=dev)
+        w = rng.uniform(0, 1, (bsz, n))
+        w[:, ::7] = 0.0
+        w[:, n - n // 10:] = 0.0
+        w = torch.as_tensor(w, dtype=torch.float32, device=dev)
+        ct = mu.transpose(-1, -2).contiguous()
+        c2 = (mu * mu).sum(-1).contiguous()
+        got = kmeans_assign.kmeans_sweep_stats(x, w, ct, c2, with_idx=True)
+        again = kmeans_assign.kmeans_sweep_stats(x, w, ct, c2, with_idx=True)
+        eidx, _ = ref.kmeans_assign_packed(x, ct, c2)
+        torch.cuda.synchronize()
+        check(all(torch.equal(u, v) for u, v in zip(got, again)),
+              f"kmeans_sweep_stats not bit-reproducible at {(bsz, n, d, k)}")
+        counts, sums, inertia, idx = got
+        x2 = (x * x).sum(-1, keepdim=True)
+        dist = torch.clamp(x2 - 2.0 * (x @ ct) + c2.unsqueeze(-2), min=0.0)
+        top2 = torch.topk(dist, min(2, k), dim=-1, largest=False).values
+        clear = (top2[..., -1] - top2[..., 0] > 1e-4) if k > 1 else \
+            torch.ones_like(idx, dtype=torch.bool)
+        check(bool(torch.all((idx == eidx) | ~clear)),
+              f"kmeans_sweep_stats label mismatch at {(bsz, n, d, k)}")
+        if k >= 5:
+            check(not bool(torch.any(idx >= k - 2)),
+                  f"kmeans_sweep_stats sends ties past the first index at "
+                  f"{(bsz, n, d, k)}")
+            check(bool(torch.all(counts[:, k - 3] == 0)),
+                  f"kmeans_sweep_stats: the far center is not empty at "
+                  f"{(bsz, n, d, k)}")
+        # the one-hot formula on the kernel's own labels
+        lab = idx.long()
+        oh = (lab.unsqueeze(-1) == torch.arange(k, device=dev)).float() \
+            * w.unsqueeze(-1)
+        d2 = torch.gather(dist, -1, lab.unsqueeze(-1)).squeeze(-1)
+        return max(
+            close(counts, oh.sum(-2), 2e-4, 2e-4,
+                  f"kmeans_sweep_stats counts at {(bsz, n, d, k)}"),
+            close(sums, oh.transpose(-1, -2) @ x, 2e-4, 2e-4,
+                  f"kmeans_sweep_stats sums at {(bsz, n, d, k)}"),
+            close(inertia, (d2 * w).sum(-1), 2e-4, 2e-4,
+                  f"kmeans_sweep_stats inertia at {(bsz, n, d, k)}"))
+
     def assign_case(bsz, n, d, k, seed, centers=None):
         x, mu, _, _ = model_inputs(np.random.default_rng(seed), n, d, k, dev,
                                    batch=bsz)
@@ -175,18 +267,28 @@ def phase_kernels(dev, report):
               f"kmeans_assign index mismatch at {(n, d, k)}")
         return err, idx, eidx
 
-    errs = {"gmm_logpdf": 0.0, "estep_stats": 0.0, "kmeans_assign": 0.0}
+    errs = {name: 0.0 for name in KERNELS}
     for i, (n, d, k) in enumerate(KERNEL_SHAPES):
         logpdf_case(n, d, k, 100 + i)
         estep_case(1, n, d, k, 200 + i)
         assign_case(1, n, d, k, 300 + i)
+        sweep_case(2, n, d, k, 400 + i)
+    # K above 128 (16 components a thread in the E-step's logit blocks)
+    estep_case(1, 3000, 8, 200, 10)
+    sweep_case(1, 3000, 8, 200, 11)
     # main-path shapes: scoring the training rows; the batched local E-step
     # and the refit E-step; the batched local Lloyd sweep and the refit's
     errs["gmm_logpdf"] = logpdf_case(N_TRAIN, D, K, 1)
     errs["estep_stats"] = max(estep_case(CLIENTS, N_PAD, D, K, 2),
-                              estep_case(1, N_SYNTH, D, K, 3))
+                              estep_case(1, N_SYNTH, D, K, 3),
+                              # tile edges: 64 rows a tile
+                              estep_case(2, 64 * 70, D, K, 12),
+                              estep_case(3, 64 * 70 + 1, D, K, 13))
     errs["kmeans_assign"] = max(assign_case(CLIENTS, N_PAD, D, K, 4)[0],
                                 assign_case(1, N_SYNTH, D, K, 5)[0])
+    errs["kmeans_sweep_stats"] = max(
+        sweep_case(bsz, n, D, K, 20 + i)
+        for i, (bsz, n) in enumerate(SWEEP_SHAPES))
     # ties: every center duplicated, so each row has two nearest centers
     rng = np.random.default_rng(6)
     base = torch.as_tensor(rng.normal(0, 2, (1, 8, D)), dtype=torch.float32,
@@ -196,7 +298,8 @@ def phase_kernels(dev, report):
     check(bool(torch.all(idx < 8)) and torch.equal(idx, eidx),
           "kmeans_assign does not resolve ties to the first index")
     log(f"phase 2: kernels match their plain versions; main-path max abs "
-        f"err {errs}; estep_stats bit-reproducible; ties to first index")
+        f"err {errs}; estep_stats and kmeans_sweep_stats bit-reproducible; "
+        f"ties to first index")
     report["errs"] = errs
 
 
@@ -224,10 +327,14 @@ def phase_main_path(dev, report):
         f"({time.perf_counter() - t0:.1f} s on the host)")
     check(split.data.shape == (CLIENTS, N_PAD, D), "unexpected split shape")
 
-    modules = {"gmm_logpdf": gmm_logpdf, "estep_stats": estep_stats,
-               "kmeans_assign": kmeans_assign}
-    for m in modules.values():
-        m.launches = 0
+    def counts():
+        return {"gmm_logpdf": gmm_logpdf.launches,
+                "estep_stats": estep_stats.launches,
+                "kmeans_assign": kmeans_assign.launches,
+                "kmeans_sweep_stats": kmeans_assign.sweep_launches}
+
+    gmm_logpdf.launches = estep_stats.launches = 0
+    kmeans_assign.launches = kmeans_assign.sweep_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fed = FedGenGMM(k_clients=K, k_global=K, h=H,
@@ -243,7 +350,7 @@ def phase_main_path(dev, report):
         for i in range(0, len(rows), 128)])
     torch.cuda.synchronize()
     t_total = time.perf_counter() - t0
-    launches = {name: m.launches for name, m in modules.items()}
+    launches = counts()
     labels = np.r_[np.zeros(len(ds.x_test_in)), np.ones(len(ds.x_test_ood))]
     auc = auc_pr(scores, labels)
     comm = fed.comm
@@ -253,7 +360,9 @@ def phase_main_path(dev, report):
     log(f"phase 3: global avg loglik {ll:.6f}, AUC-PR {auc:.6f}, |S| "
         f"{fed.synthetic.shape[0]}, local EM iterations {iters}")
     log(f"phase 3: comm {comm._asdict()}, {comm.total_mb:.4f} MiB")
-    log(f"phase 3: launches on the main path {launches}")
+    log(f"phase 3: launches on the main path {launches} (the fused Lloyd "
+        f"sweeps launch kmeans_sweep_stats, which holds kmeans_assign's "
+        f"assignment core; the assignment-only entry is off this path)")
     up = CLIENTS * (gmm_payload_floats(K, D, True) + 1)
     check(comm.rounds == 1 and comm.uplink_floats == up,
           f"uplink_floats {comm.uplink_floats} != closed form {up}")
@@ -263,8 +372,9 @@ def phase_main_path(dev, report):
     for t in (fed.global_gmm.weights, fed.global_gmm.means,
               fed.global_gmm.covs):
         check(bool(torch.isfinite(t).all()), "non-finite global model")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in PATH_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the main path")
 
     t0 = time.perf_counter()
     central = GMMEstimator(K, device=dev.type).fit(ds.x_train, seed=0)
@@ -361,11 +471,39 @@ def phase_em_agreement(dev, report):
 # ----------------------------------------------------------------------
 
 def phase_times(dev, report):
+    """Each kernel and its plain version timed in turns (kernel, plain,
+    kernel, plain), each the device time of one call from 30 replays of a
+    CUDA graph; both kernel times are kept to show the spread, and the
+    smaller is the row's time. The kernel's eager call (host launch cost
+    included) is timed beside it."""
     import numpy as np
     import torch
     from repro_torch.kernels import estep_stats, gmm_logpdf, kmeans_assign
     from repro_torch.kernels import ref
     from repro_torch.kernels.ops import pack_params
+
+    def turns(kern, plain):
+        ks, ps = [], []
+        for _ in range(2):
+            ks.append(graph_ms(kern))
+            ps.append(graph_ms(plain))
+        return ks, ps
+
+    def bound(nbytes, flops):
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = flops / PEAK_F32_FLOPS * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
+
+    def onehot_sweep(x, w, ct, c2):
+        """The fused sweep as an assignment kernel and one-hot ops (what
+        kmeans_sweep_stats replaces): idx and d2 from kmeans_assign, then
+        the weighted one-hot matrix, its column sums and ``oh.T @ x``."""
+        idx, d2 = kmeans_assign.kmeans_assign(x, ct, c2)
+        oh = (idx.unsqueeze(-1) == torch.arange(ct.shape[-1], device=dev)
+              ).to(x.dtype) * w.unsqueeze(-1)
+        return oh.sum(dim=-2), oh.transpose(-1, -2) @ x, torch.sum(d2 * w,
+                                                                   dim=-1)
 
     rng = np.random.default_rng(9)
     rows = {}
@@ -386,38 +524,66 @@ def phase_times(dev, report):
         lambda: estep_stats.estep_stats(xe, we, ae, be, ce),
         lambda: ref.estep_stats_packed(xe, we, ae, be, ce),
         n * (D + 1) * 4, 8 * n * D * K)
-    # kmeans_assign: one Lloyd sweep of the 20 batched local k-means
+    # kmeans_assign and kmeans_sweep_stats: one Lloyd sweep of the 20
+    # batched local k-means
     ct = mue.transpose(-1, -2).contiguous()
     c2 = (mue * mue).sum(-1).contiguous()
     rows["kmeans_assign"] = (
         lambda: kmeans_assign.kmeans_assign(xe, ct, c2),
         lambda: ref.kmeans_assign_packed(xe, ct, c2),
         n * (D + 2) * 4, 2 * n * D * K)
+    rows["kmeans_sweep_stats"] = (
+        lambda: kmeans_assign.kmeans_sweep_stats(xe, we, ct, c2),
+        lambda: ref.kmeans_sweep_packed(xe, we, ct, c2),
+        n * (D + 1) * 4, 2 * n * D * K + n * D)
     out = []
     for name, (kern, plain, nbytes, flops) in rows.items():
-        ms = min(cuda_ms(kern), cuda_ms(kern))
-        plain_ms = min(cuda_ms(plain), cuda_ms(plain))
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_ops = flops / PEAK_F32_FLOPS * 1e3
+        ks, ps = turns(kern, plain)
+        b_ms, b_by = bound(nbytes, flops)
         source, replaces = KERNELS[name]
         out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": report["launches"][name],
-            "max_abs_err": report["errs"][name], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None})
-        log(f"phase 5: {name}: {ms:.5f} ms (plain {plain_ms:.5f} ms, bound "
-            f"{max(t_bytes, t_ops):.5f} ms by "
-            f"{out[-1]['bound_by']})")
-    # the refit's E-step (one client, |S| rows), reported beside the table
+            "max_abs_err": report["errs"][name], "ms": min(ks),
+            "plain_ms": min(ps), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "ms_runs": ks})
+        log(f"phase 5: {name}: {ks[0]:.5f} / {ks[1]:.5f} ms (plain "
+            f"{ps[0]:.5f} / {ps[1]:.5f} ms, bound {b_ms:.5f} ms by {b_by}; "
+            f"eager call {cuda_ms(kern):.5f} ms)")
+    ks, ps = turns(rows["kmeans_sweep_stats"][0],
+                   lambda: onehot_sweep(xe, we, ct, c2))
+    out[-1]["composite_ms"] = min(ps)
+    log(f"phase 5: kmeans_sweep_stats at ({CLIENTS}, {N_PAD}): {ks[0]:.5f} / "
+        f"{ks[1]:.5f} ms; the assignment kernel + one-hot ops it replaces "
+        f"{ps[0]:.5f} / {ps[1]:.5f} ms")
+    # the other main-path shapes, beside the table
     xs, mus, vars_, lws = model_inputs(rng, N_SYNTH, D, K, dev, batch=1)
     ws = torch.ones((1, N_SYNTH), device=dev)
     as_, bs, cs = pack_params(mus, vars_, lws)
-    ms = cuda_ms(lambda: estep_stats.estep_stats(xs, ws, as_, bs, cs))
-    plain_ms = cuda_ms(lambda: ref.estep_stats_packed(xs, ws, as_, bs, cs))
+    ks, ps = turns(lambda: estep_stats.estep_stats(xs, ws, as_, bs, cs),
+                   lambda: ref.estep_stats_packed(xs, ws, as_, bs, cs))
+    b_ms, b_by = bound(N_SYNTH * (D + 1) * 4, 8 * N_SYNTH * D * K)
     log(f"phase 5: estep_stats at the refit shape (1, {N_SYNTH}, {D}, {K}): "
-        f"{ms:.5f} ms (plain {plain_ms:.5f} ms)")
+        f"{ks[0]:.5f} / {ks[1]:.5f} ms (plain {ps[0]:.5f} / {ps[1]:.5f} ms, "
+        f"bound {b_ms:.5f} ms by {b_by})")
+    for bsz, n in SWEEP_SHAPES:
+        if (bsz, n) == (CLIENTS, N_PAD):
+            continue
+        xk = torch.as_tensor(rng.normal(0, 2, (bsz, n, D)),
+                             dtype=torch.float32, device=dev)
+        wk = torch.ones((bsz, n), device=dev)
+        mk = torch.as_tensor(rng.normal(0, 2, (bsz, K, D)),
+                             dtype=torch.float32, device=dev)
+        ctk = mk.transpose(-1, -2).contiguous()
+        c2k = (mk * mk).sum(-1).contiguous()
+        ks, ps = turns(
+            lambda: kmeans_assign.kmeans_sweep_stats(xk, wk, ctk, c2k),
+            lambda: onehot_sweep(xk, wk, ctk, c2k))
+        b_ms, b_by = bound(bsz * n * (D + 1) * 4,
+                           bsz * n * (2 * D * K + D))
+        log(f"phase 5: kmeans_sweep_stats at ({bsz}, {n}): {ks[0]:.5f} / "
+            f"{ks[1]:.5f} ms; assignment kernel + one-hot ops {ps[0]:.5f} / "
+            f"{ps[1]:.5f} ms; bound {b_ms:.5f} ms by {b_by}")
     report["kernels"] = out
 
 
@@ -469,10 +635,17 @@ def phase_trace(dev, report):
     if busy <= 0:
         log("phase 6: trace not measured (no device time recorded)")
         return
+    gemm = {name: ms for name, ms in by_name.items() if "gemm" in name.lower()}
+    n_gemm = sum(1 for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA
+                 and "gemm" in ev.name.lower())
+    log(f"phase 6: cuBLAS GEMM launches in the profiled fit: {n_gemm}, "
+        f"{sum(gemm.values()):.3f} ms (on the fused path only label_stats' "
+        f"one-hot products are matmuls)")
     log(f"phase 6: FedGenGMM fit device busy {busy:.3f} ms of "
         f"{warm * 1e3:.3f} ms warm unprofiled wall (idle share "
         f"{1 - busy / (warm * 1e3):.4f})")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"phase 6:   {ms:10.3f} ms  {name[:100]}")
 
 
@@ -513,8 +686,9 @@ def main() -> int:
             f"{ {k: round(v, 1) for k, v in seconds.items()} })")
         for name in _build.SOURCES:
             for line in _build.build_log(name).splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"phase 1: {name}: {line.strip()}")
+                if ("Compiling entry" in line or "registers" in line
+                        or "spill" in line):
+                    log(f"phase 1: {name}: {line.strip()[:160]}")
     except Exception:
         traceback.print_exc()
         failures.append("build")

@@ -4,9 +4,10 @@
 Like the EM engine, everything here runs on stacked problems: rows
 ``x (B, N, d)``, weights ``w (B, N)``, centers ``(B, K, d)``. The B axis
 stands in for ``jax.vmap``: the k-means inits of all clients, and all
-``n_init`` restarts of each, run as one batch, one assignment launch per
-sweep. A member stops iterating when its own center shift drops to
-``tol``, and its centers are frozen from then on, as under vmap.
+``n_init`` restarts of each, run as one batch, one kernel launch per
+sweep on the fused backend. A member stops iterating when its own center
+shift drops to ``tol``, and its centers are frozen from then on, as under
+vmap.
 
 Random draws come from explicit torch generators: member b of a call with
 ``seed`` draws from ``derive_seed(seed, b)`` and a stage name. The draws
@@ -53,13 +54,9 @@ def _sq_dists(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
                        min=0.0)
 
 
-def _assign_block(xb: torch.Tensor, centers: torch.Tensor, backend: str):
-    """Nearest-center assignment of one row block -> (int32 index, d2).
-    ``fused`` launches the CUDA ``kmeans_assign`` kernel, reference uses the
-    matmul identity; ties go to the first index either way."""
-    if backend == "fused":
-        from repro_torch.kernels import ops
-        return ops.kmeans_assign(xb, centers)
+def _assign_block(xb: torch.Tensor, centers: torch.Tensor):
+    """Reference nearest-center assignment of one row block -> (int32
+    index, d2) through the matmul identity; ties go to the first index."""
     dists = _sq_dists(xb, centers)
     return (torch.argmin(dists, dim=-1).to(torch.int32),
             dists.min(dim=-1).values)
@@ -76,8 +73,14 @@ def _labels_onehot(idx: torch.Tensor, k: int, wb: torch.Tensor,
 def _sweep_block(xb: torch.Tensor, wb: torch.Tensor, centers: torch.Tensor,
                  backend: str):
     """Weighted Lloyd-sweep statistics of one block:
-    (counts (.., K), sums (.., K, d), inertia (..))."""
-    idx, d2 = _assign_block(xb, centers, backend)
+    (counts (.., K), sums (.., K, d), inertia (..)). ``fused`` launches the
+    CUDA ``kmeans_sweep_stats`` kernel, which assigns and reduces in one
+    pass; reference builds the weighted one-hot matrix."""
+    if backend == "fused":
+        from repro_torch.kernels import ops
+        counts, sums, inertia, _ = ops.kmeans_sweep(xb, wb, centers)
+        return counts, sums, inertia
+    idx, d2 = _assign_block(xb, centers)
     oh = _labels_onehot(idx, centers.shape[-2], wb, xb.dtype)
     return oh.sum(dim=-2), oh.transpose(-1, -2) @ xb, torch.sum(d2 * wb,
                                                                  dim=-1)
@@ -88,11 +91,10 @@ def _update_block(xb: torch.Tensor, wb: torch.Tensor, centers: torch.Tensor,
     """counts/sums only: the Lloyd loop never reads inertia, so the
     reference assignment reduces to ``argmax(x·c - |c|²/2)``."""
     if backend == "fused":
-        idx, _ = _assign_block(xb, centers, backend)
-    else:
-        score = xb @ centers.transpose(-1, -2) - 0.5 * torch.sum(
-            centers * centers, dim=-1).unsqueeze(-2)
-        idx = torch.argmax(score, dim=-1)
+        return _sweep_block(xb, wb, centers, backend)[:2]
+    score = xb @ centers.transpose(-1, -2) - 0.5 * torch.sum(
+        centers * centers, dim=-1).unsqueeze(-2)
+    idx = torch.argmax(score, dim=-1)
     oh = _labels_onehot(idx, centers.shape[-2], wb, xb.dtype)
     return oh.sum(dim=-2), oh.transpose(-1, -2) @ xb
 
@@ -207,7 +209,12 @@ def _lloyd(x: torch.Tensor, w: torch.Tensor, centers: torch.Tensor,
         active = (it < max_iter) & (shift > tol)
 
     def block(xb, wb):
-        idx, d2 = _assign_block(xb, centers, backend)
+        if backend == "fused":
+            from repro_torch.kernels import ops
+            counts, _, inertia, idx = ops.kmeans_sweep(xb, wb, centers,
+                                                       with_idx=True)
+            return (counts, inertia), (idx,)
+        idx, d2 = _assign_block(xb, centers)
         oh = _labels_onehot(idx, centers.shape[-2], wb, xb.dtype)
         return ((oh.sum(dim=-2), torch.sum(d2 * wb, dim=-1)), (idx,))
 

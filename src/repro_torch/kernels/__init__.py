@@ -2,9 +2,11 @@
 kernels in ``repro.kernels``).
 
 * ``ops``: the model-level entry points (``gmm_logpdf``, ``estep_stats``,
-  ``kmeans_assign``), which pack parameters and call the wrappers;
+  ``kmeans_assign``, ``kmeans_sweep``), which pack parameters and call the
+  wrappers;
 * ``gmm_logpdf``, ``estep_stats``, ``kmeans_assign``: one launch wrapper
-  module per kernel, each with its ``launches`` count;
+  module per CUDA source, each with its ``launches`` count
+  (``kmeans_assign`` also wraps the sweep kernel, ``sweep_launches``);
 * ``ref``: the plain PyTorch versions;
 * ``_build``: builds ``csrc/*.cu`` with nvcc at first use.
 """

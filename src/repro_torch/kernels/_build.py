@@ -4,16 +4,18 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library, which is loaded with ``ctypes``.
 A library is built at its first use, into ``build/repro_torch_kernels/`` at
 the root of the checkout (listed in ``.gitignore``), under a name that
-hashes the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. :func:`build` starts one ``nvcc`` per
-source, all at once, and waits for them. A failed build raises, and so does
-every launch whose returned ``cudaError_t`` is not 0.
+hashes the source, the headers it includes and the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is.
+:func:`build` starts one ``nvcc`` per source, all at once, and waits for
+them. A failed build raises, and so does every launch whose returned
+``cudaError_t`` is not 0.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -45,11 +47,29 @@ def _nvcc() -> str:
                        "CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources_of(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every ``csrc`` header it includes, directly or
+    through another header, in the order first met."""
+    found = [CSRC / f"{name}.cu"]
+    for path in found:
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = CSRC / inc.decode()
+            if dep.exists() and dep not in found:
+                found.append(dep)
+    return found
+
+
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` is built."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where the library of ``csrc/<name>.cu`` is built: the name hashes
+    the source, its headers and the flags."""
+    h = hashlib.sha256()
+    for path in sources_of(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES) -> dict[str, float]:

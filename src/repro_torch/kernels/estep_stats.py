@@ -5,8 +5,8 @@
 ``estep_stats(x, w, a, b, c)`` takes a batch of clients with their packed
 matmul-identity operands. On CPU tensors it runs the plain version,
 ``ref.estep_stats_packed``; on CUDA tensors it launches the kernel (two
-passes: per-tile partials, then a fixed-order sum) or raises. ``launches``
-counts kernel launches.
+passes: per-(client, 256-row chunk) partials, then a fixed-order sum) or
+raises. ``launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -18,25 +18,11 @@ from repro_torch.kernels import _build, ref
 
 launches = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
-# Shared memory one block may take for its tile; the row tile halves until
-# the client's operands and the tile fit (227 KB is the card's limit).
-_SMEM_BUDGET = 160 * 1024
-_MAX_ROWS = 256
-
-
-def smem_bytes(rows: int, d: int, k: int) -> int:
-    """Shared memory of one block of the partial pass (csrc layout)."""
-    return 4 * (2 * d * k + k + rows * d + rows + rows * k + rows)
-
-
-def tile_rows(d: int, k: int) -> int:
-    """Rows of x per block for a (d, K) problem."""
-    rows = _MAX_ROWS
-    while rows > 16 and smem_bytes(rows, d, k) > _SMEM_BUDGET:
-        rows //= 2
-    return rows
+# csrc/estep_stats.cu: rows a partial sums, the largest K
+CHUNK_ROWS = 256
+MAX_K = 512
 
 
 def estep_stats(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
@@ -54,22 +40,20 @@ def estep_stats(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     _build.require(a, "a", (cl, d, k), dev)
     _build.require(b, "b", (cl, d, k), dev)
     _build.require(c, "c", (cl, k), dev)
-    if k == 0:
-        raise ValueError("estep_stats needs at least one component")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"estep_stats takes 1 <= K <= {MAX_K}, got {k}")
     p_len = k + 2 * k * d + 1
     out = torch.empty((cl, p_len), dtype=torch.float32, device=dev)
     if n == 0 or cl == 0:
         out.zero_()
     else:
-        rows = tile_rows(d, k)
-        tiles = -(-n // rows)
-        partial = torch.empty((cl, tiles, p_len), dtype=torch.float32,
-                              device=dev)
+        partial = torch.empty((cl, -(-n // CHUNK_ROWS), p_len),
+                              dtype=torch.float32, device=dev)
         fn = _build.function("estep_stats", "estep_stats_launch", _ARGTYPES)
         with torch.cuda.device(dev):
             code = fn(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
                       c.data_ptr(), partial.data_ptr(), out.data_ptr(),
-                      cl, n, d, k, rows, _build.stream_of(x))
+                      cl, n, d, k, _build.stream_of(x))
         _build.check_launch("estep_stats", code)
         launches += 1
     kd = k * d

@@ -1,4 +1,4 @@
-"""Model-level entry points of the three kernels (port of
+"""Model-level entry points of the kernels (port of
 ``repro/kernels/ops.py``).
 
 They pack model parameters into the matmul-identity operands
@@ -20,6 +20,8 @@ import torch
 from repro_torch.kernels.estep_stats import estep_stats as _estep_kernel
 from repro_torch.kernels.gmm_logpdf import gmm_logpdf as _logpdf_kernel
 from repro_torch.kernels.kmeans_assign import kmeans_assign as _assign_kernel
+from repro_torch.kernels.kmeans_assign import (
+    kmeans_sweep_stats as _sweep_kernel)
 
 LOG_2PI = 1.8378770664093453
 
@@ -73,6 +75,13 @@ def estep_stats(x: torch.Tensor, means: torch.Tensor, variances: torch.Tensor,
     return s0, s1, s2, ll
 
 
+def _pack_centers(centers: torch.Tensor):
+    """centers (B, K, d) -> (transposed centers (B, d, K), |c|^2 (B, K))."""
+    centers = centers.to(torch.float32)
+    return (centers.transpose(-1, -2).contiguous(),
+            torch.sum(centers * centers, dim=-1).contiguous())
+
+
 def kmeans_assign(x: torch.Tensor, centers: torch.Tensor):
     """Nearest-center assignment. x (N, d) with centers (K, d), or a batch
     x (B, N, d) with centers (B, K, d). Returns (int32 index, squared
@@ -80,10 +89,17 @@ def kmeans_assign(x: torch.Tensor, centers: torch.Tensor):
     single = x.ndim == 2
     if single:
         x, centers = x[None], centers[None]
-    centers = centers.to(torch.float32)
-    ct = centers.transpose(-1, -2).contiguous()
-    c2 = torch.sum(centers * centers, dim=-1).contiguous()
-    idx, d2 = _assign_kernel(_f32(x), ct, c2)
+    idx, d2 = _assign_kernel(_f32(x), *_pack_centers(centers))
     if single:
         return idx[0], d2[0]
     return idx, d2
+
+
+def kmeans_sweep(x: torch.Tensor, w: torch.Tensor, centers: torch.Tensor,
+                 with_idx: bool = False):
+    """Weighted Lloyd-sweep statistics of the nearest-center assignment of
+    a batch x (B, N, d), weights (B, N), centers (B, K, d): (counts (B, K),
+    sums (B, K, d), inertia (B,), int32 labels (B, N) or None), the labels
+    only when ``with_idx``."""
+    return _sweep_kernel(_f32(x), _f32(w), *_pack_centers(centers),
+                         with_idx=with_idx)

@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the three kernels (port of
-``repro/kernels/ref.py``).
+"""Plain PyTorch versions of the kernels (port of ``repro/kernels/ref.py``,
+plus the k-means sweep statistics of ``repro/core/kmeans.py``).
 
 Two forms of each function live here:
 
@@ -7,8 +7,8 @@ Two forms of each function live here:
   weights, centers), exactly as ``repro.kernels.ref`` does;
 * the packed forms (``*_packed``) take the matmul-identity operands the
   CUDA kernels take (A = -1/2 var^-1, B = mu / var, c; or the transposed
-  centers and their squared norms). They repeat each kernel's arithmetic
-  step for step: the launch wrappers run them on CPU tensors, and
+  centers and their squared norms). They compute each kernel's function
+  from the same operands: the launch wrappers run them on CPU tensors, and
   ``chip_smoke.py`` holds each kernel against them on the card.
 
 Every function accepts optional leading batch dimensions.
@@ -102,3 +102,16 @@ def kmeans_assign_packed(x: torch.Tensor, ct: torch.Tensor,
     d2 = torch.clamp(x2 - 2.0 * (x @ ct) + c2.unsqueeze(-2), min=0.0)
     return (torch.argmin(d2, dim=-1).to(torch.int32),
             d2.min(dim=-1).values)
+
+
+def kmeans_sweep_packed(x: torch.Tensor, w: torch.Tensor, ct: torch.Tensor,
+                        c2: torch.Tensor):
+    """x (B, N, d), w (B, N), ct (B, d, K), c2 (B, K) -> (counts (B, K),
+    sums (B, K, d), inertia (B,), idx (B, N) int32): the weighted Lloyd-sweep
+    statistics of ``kmeans_assign_packed``'s assignment, in the one-hot
+    formulation of ``repro/core/kmeans.py::_sweep_block``."""
+    idx, d2 = kmeans_assign_packed(x, ct, c2)
+    cols = torch.arange(ct.shape[-1], device=x.device)
+    oh = (idx.unsqueeze(-1) == cols).to(x.dtype) * w.unsqueeze(-1)
+    return (oh.sum(dim=-2), oh.transpose(-1, -2) @ x,
+            torch.sum(d2 * w, dim=-1), idx)

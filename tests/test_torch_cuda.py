@@ -90,7 +90,84 @@ class TestKernelLaunch:
                       x.cpu().numpy(), mu.cpu().numpy(),
                       eidx[0].cpu().numpy(), ed2[0].cpu().numpy())
 
+    @pytest.mark.parametrize("cl,n,d,k", [
+        (1, 30000, 24, 30),      # the refit's E-step
+        (2, 64 * 70, 24, 30),    # 64-row tiles, N on a tile edge
+        (3, 64 * 70 + 1, 24, 30),
+        (1, 3000, 8, 200),       # K > 128: 16 components a thread
+    ])
+    def test_estep_main_path_shapes_and_tile_edges(self, cl, n, d, k):
+        dev = torch.device("cuda")
+        rng = np.random.default_rng(n + k)
+        x, mu, var, lw = (t(np.stack(a)).to(dev) for a in zip(
+            *(make_inputs(rng, n, d, k) for _ in range(cl))))
+        w = t(rng.uniform(0, 1, (cl, n)).astype(np.float32)).to(dev)
+        a, b, c = ops.pack_params(mu, var, lw)
+        before = estep_stats.launches
+        got = estep_stats.estep_stats(x, w, a, b, c)
+        again = estep_stats.estep_stats(x, w, a, b, c)
+        exp = ref.estep_stats_packed(x, w, a, b, c)
+        assert estep_stats.launches == before + 2
+        for g, h, e, rtol, atol in zip(got, again, exp,
+                                       (1e-3, 1e-3, 1e-3, 1e-4),
+                                       (1e-4, 1e-3, 1e-3, 0.0)):
+            assert torch.equal(g, h)
+            np.testing.assert_allclose(g.cpu().numpy(), e.cpu().numpy(),
+                                       rtol=rtol, atol=atol)
+
+    @pytest.mark.parametrize("bsz,n,d,k", [
+        (80, 7320, 24, 30), (4, 16384, 24, 30), (1, 30000, 24, 30),
+        (2, 513, 11, 15), (1, 2048, 128, 64), (1, 17, 3, 1), (1, 900, 8, 200),
+    ])
+    def test_sweep_matches_onehot_formula(self, bsz, n, d, k):
+        """Labels equal to the plain assignment wherever the nearest two
+        centers are more than 1e-4 apart, ties to the first index, an empty
+        cluster, zero-weight rows; counts, sums and inertia within 2e-4 of
+        the one-hot formula on the kernel's own labels; the same bits from
+        two launches."""
+        dev = torch.device("cuda")
+        rng = np.random.default_rng(bsz * n + k)
+        x = t(rng.normal(0, 2, (bsz, n, d)).astype(np.float32)).to(dev)
+        mu = rng.normal(0, 2, (bsz, k, d)).astype(np.float32)
+        if k >= 5:
+            mu[:, 0] = 1e3
+            mu[:, k - 2:] = mu[:, 1:3]
+        mu = t(mu).to(dev)
+        w = rng.uniform(0, 1, (bsz, n)).astype(np.float32)
+        w[:, ::7] = 0.0
+        w = t(w).to(dev)
+        ct = mu.transpose(-1, -2).contiguous()
+        c2 = (mu * mu).sum(-1).contiguous()
+        before = kmeans_assign.sweep_launches
+        got = kmeans_assign.kmeans_sweep_stats(x, w, ct, c2, with_idx=True)
+        again = kmeans_assign.kmeans_sweep_stats(x, w, ct, c2, with_idx=True)
+        assert kmeans_assign.sweep_launches == before + 2
+        assert all(torch.equal(g, h) for g, h in zip(got, again))
+        counts, sums, inertia, idx = (v.cpu() for v in got)
+        eidx, ed2 = (v.cpu() for v in ref.kmeans_assign_packed(x, ct, c2))
+        xc, wc, muc = x.cpu(), w.cpu(), mu.cpu()
+        for i in range(bsz):
+            assert_assign(idx[i].numpy(), ed2[i].numpy(), xc[i].numpy(),
+                          muc[i].numpy(), eidx[i].numpy(), ed2[i].numpy())
+        if k >= 5:
+            assert int(idx.max()) < k - 2 and bool((counts[:, 0] == 0).all())
+        oh = (idx.long().unsqueeze(-1) == torch.arange(k)).float() \
+            * wc.unsqueeze(-1)
+        dist = torch.clamp((xc * xc).sum(-1, keepdim=True)
+                           - 2.0 * (xc @ ct.cpu()) + c2.cpu().unsqueeze(-2),
+                           min=0.0)
+        d2 = torch.gather(dist, -1, idx.long().unsqueeze(-1)).squeeze(-1)
+        for g, e in ((counts, oh.sum(-2)), (sums, oh.transpose(-1, -2) @ xc),
+                     (inertia, (d2 * wc).sum(-1))):
+            np.testing.assert_allclose(g.numpy(), e.numpy(), rtol=2e-4,
+                                       atol=2e-4)
+
     def test_wrapper_rejects_bad_operands(self):
+        with pytest.raises(ValueError):  # K beyond the E-step's 512
+            z = torch.zeros(1, 8, 4, device="cuda")
+            big = torch.zeros(1, 4, 513, device="cuda")
+            estep_stats.estep_stats(z, z[..., 0], big, big,
+                                    torch.zeros(1, 513, device="cuda"))
         x = torch.zeros(8, 4, device="cuda")
         a = torch.zeros(4, 3, device="cuda")
         with pytest.raises(ValueError):
