@@ -11,13 +11,15 @@ Phases (each failure makes the exit code non-zero):
      shared memory;
   2. every kernel against its plain PyTorch version on the card, at the
      kernel test shapes and at the main path's shapes, with the tolerances of
-     ``tests/test_kernels.py``; tie cases; the E-step and the sweep kernels
-     giving the same bits in two launches; the sweep's statistics against
-     the one-hot formula on its own labels, with zero-weight rows, an empty
-     cluster and duplicated centers;
+     ``tests/test_kernels.py``; tie cases; the log-prob, E-step and sweep
+     kernels giving the same bits in two launches; a row's log density
+     giving the same bits alone, in a 128-row request, in the 60,000-row
+     call and through ``log_prob`` at chunk 4096 and None; the sweep's
+     statistics against the one-hot formula on its own labels, with
+     zero-weight rows, an empty cluster and duplicated centers;
   3. the main path at the paper's MNIST width: FedGenGMM (20 clients, 60,000
      rows, d = 24, K = 30, |S| = 30,000), then scoring requests through
-     ``gmm_logpdf`` (avg log-likelihood, AUC-PR), with every kernel's launch
+     ``gmm_log_prob`` (avg log-likelihood, AUC-PR), with every kernel's launch
      count read around the run; a central GMM for comparison;
   4. EM agreement on the card: from one injected init, the fused and the
      reference backends reach final avg log-likelihoods within 1e-4 on the
@@ -25,9 +27,14 @@ Phases (each failure makes the exit code non-zero):
      fits at tol 0 are reported beside a float64 witness;
   5. kernel times at the main path's shapes against their bounds, each
      timed twice in turns with its plain version; the sweep kernel beside
-     the assignment kernel + one-hot ops it replaces;
+     the assignment kernel + one-hot ops it replaces; both log-density
+     entries at 60,000 and 128 rows, and the fused ``_log_prob_block`` at
+     60,000 and 1,000,000 rows beside the per-component kernel +
+     ``torch.logsumexp`` and beside cuBLAS (``torch.addmm`` on pre-built
+     operands) + ``torch.logsumexp``;
   6. the main path's device time by kernel (``torch.profiler``), with the
-     count of cuBLAS GEMM launches.
+     count of cuBLAS GEMM launches; the device work of each 128-row anomaly
+     request.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the repository
@@ -60,6 +67,8 @@ N_SYNTH = H * CLIENTS * K
 KERNELS = {
     "gmm_logpdf": ("src/repro_torch/kernels/csrc/gmm_logpdf.cu",
                    "src/repro/kernels/gmm_logpdf.py:31"),
+    "gmm_log_prob": ("src/repro_torch/kernels/csrc/gmm_logpdf.cu",
+                     "src/repro/kernels/gmm_logpdf.py:31"),
     "estep_stats": ("src/repro_torch/kernels/csrc/estep_stats.cu",
                     "src/repro/kernels/estep_stats.py:25"),
     "kmeans_assign": ("src/repro_torch/kernels/csrc/kmeans_assign.cu",
@@ -68,8 +77,11 @@ KERNELS = {
                            "src/repro/kernels/kmeans_assign.py:18"),
 }
 # The kernels the fused main path launches (kmeans_assign's assignment core
-# runs there inside kmeans_sweep_stats).
-PATH_KERNELS = ("gmm_logpdf", "estep_stats", "kmeans_sweep_stats")
+# runs there inside kmeans_sweep_stats, gmm_logpdf's core inside
+# gmm_log_prob), and the entries it must not launch.
+PATH_KERNELS = ("gmm_log_prob", "estep_stats", "kmeans_sweep_stats")
+OFF_PATH_KERNELS = ("gmm_logpdf", "kmeans_assign")
+REQUEST_ROWS = 128  # rows of one anomaly-scoring request
 # The main path's Lloyd sweep shapes (problems, rows): the local pilots (20
 # clients x 4 restarts), the local fits, the refit's pilots on its
 # SEED_ROWS subsample, the refit's full-data polish.
@@ -142,6 +154,25 @@ def graph_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def turns(kern, plain):
+    """``kern`` and ``plain`` timed in turns (kern, plain, kern, plain) by
+    :func:`graph_ms`: (both kern times, both plain times)."""
+    ks, ps = [], []
+    for _ in range(2):
+        ks.append(graph_ms(kern))
+        ps.append(graph_ms(plain))
+    return ks, ps
+
+
+def bound(nbytes, flops):
+    """(ms, "bytes" or "operations"): the least time the card could take to
+    move ``nbytes`` and do ``flops`` f32 operations, and which bounds it."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
 def model_inputs(rng, n, d, k, dev, batch=None):
     """The inputs of tests/test_kernels.py::make_inputs (optionally with a
     leading batch axis), as float32 tensors on ``dev``."""
@@ -163,20 +194,58 @@ def model_inputs(rng, n, d, k, dev, batch=None):
 def phase_kernels(dev, report):
     import numpy as np
     import torch
+    from repro_torch.api import FitConfig, log_prob
+    from repro_torch.core.gmm import GMM
     from repro_torch.kernels import estep_stats, gmm_logpdf, kmeans_assign
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.ops import pack_params
 
     def logpdf_case(n, d, k, seed):
+        """Both entries of csrc/gmm_logpdf.cu: the per-component densities
+        against the oracle and the plain version, the row log density
+        against its plain version, and two launches of it bit-equal."""
         x, mu, var, lw = model_inputs(np.random.default_rng(seed), n, d, k,
                                       dev)
         a, b, c = pack_params(mu, var, lw)
         out = gmm_logpdf.gmm_logpdf(x, a, b, c)
+        lp = gmm_logpdf.gmm_log_prob(x, a, b, c)
+        again = gmm_logpdf.gmm_log_prob(x, a, b, c)
         torch.cuda.synchronize()
+        check(torch.equal(lp, again),
+              f"gmm_log_prob not bit-reproducible at {(n, d, k)}")
         close(out, ref.gmm_logpdf_ref(x, mu, var, lw), 2e-4, 2e-4,
               f"gmm_logpdf vs oracle at {(n, d, k)}")
-        return close(out, ref.gmm_logpdf_packed(x, a, b, c), 2e-4, 2e-4,
-                     f"gmm_logpdf vs plain at {(n, d, k)}")
+        return (close(out, ref.gmm_logpdf_packed(x, a, b, c), 2e-4, 2e-4,
+                      f"gmm_logpdf vs plain at {(n, d, k)}"),
+                close(lp, ref.gmm_log_prob_packed(x, a, b, c), 2e-4, 2e-4,
+                      f"gmm_log_prob vs plain at {(n, d, k)}"))
+
+    def rows_stable(seed):
+        """A row's fused log density has the same bits alone, in 128-row
+        requests, inside the 60,000-row call, and through ``api.log_prob``
+        at chunk 4096 (a ragged last chunk) and at None."""
+        x, mu, var, lw = model_inputs(np.random.default_rng(seed), N_TRAIN,
+                                      D, K, dev)
+        g = GMM(torch.exp(lw), mu, var)
+        args = (g.means, g.covs, torch.log(g.weights))
+        full = ops.gmm_log_prob(x, *args)
+        requests = torch.cat([ops.gmm_log_prob(x[i:i + REQUEST_ROWS], *args)
+                              for i in range(0, N_TRAIN, REQUEST_ROWS)])
+        picks = [0, 1, 127, 128, 255, 256, N_TRAIN - 1] + [
+            int(i) for i in np.random.default_rng(seed).integers(0, N_TRAIN,
+                                                                 25)]
+        alone = torch.cat([ops.gmm_log_prob(x[i:i + 1], *args)
+                           for i in picks])
+        cfg = FitConfig(backend="fused", device=dev.type)
+        chunked = log_prob(g, x, cfg.replace(chunk_size=4096))
+        whole = log_prob(g, x, cfg)
+        torch.cuda.synchronize()
+        check(torch.equal(requests, full), "gmm_log_prob: 128-row requests "
+              "differ from the 60,000-row call")
+        check(torch.equal(alone, full[picks]), "gmm_log_prob: rows scored "
+              "alone differ from the 60,000-row call")
+        check(torch.equal(chunked, full) and torch.equal(whole, full),
+              "log_prob at chunk 4096 or None differs from the kernel")
 
     def estep_case(c_, n, d, k, seed):
         rng = np.random.default_rng(seed)
@@ -276,9 +345,18 @@ def phase_kernels(dev, report):
     # K above 128 (16 components a thread in the E-step's logit blocks)
     estep_case(1, 3000, 8, 200, 10)
     sweep_case(1, 3000, 8, 200, 11)
-    # main-path shapes: scoring the training rows; the batched local E-step
-    # and the refit E-step; the batched local Lloyd sweep and the refit's
-    errs["gmm_logpdf"] = logpdf_case(N_TRAIN, D, K, 1)
+    # K over one 32-component chunk of the log-prob entry, d = 128, one row
+    for i, (n, d, k) in enumerate([(700, 24, 64), (700, 24, 100),
+                                   (300, 128, 100), (1, D, K)]):
+        logpdf_case(n, d, k, 110 + i)
+    # main-path shapes: scoring the training rows and a 128-row request;
+    # the batched local E-step and the refit E-step; the batched local Lloyd
+    # sweep and the refit's
+    full_errs = logpdf_case(N_TRAIN, D, K, 1)
+    request_errs = logpdf_case(REQUEST_ROWS, D, K, 14)
+    errs["gmm_logpdf"] = max(full_errs[0], request_errs[0])
+    errs["gmm_log_prob"] = max(full_errs[1], request_errs[1])
+    rows_stable(15)
     errs["estep_stats"] = max(estep_case(CLIENTS, N_PAD, D, K, 2),
                               estep_case(1, N_SYNTH, D, K, 3),
                               # tile edges: 64 rows a tile
@@ -298,8 +376,9 @@ def phase_kernels(dev, report):
     check(bool(torch.all(idx < 8)) and torch.equal(idx, eidx),
           "kmeans_assign does not resolve ties to the first index")
     log(f"phase 2: kernels match their plain versions; main-path max abs "
-        f"err {errs}; estep_stats and kmeans_sweep_stats bit-reproducible; "
-        f"ties to first index")
+        f"err {errs}; gmm_log_prob, estep_stats and kmeans_sweep_stats "
+        f"bit-reproducible; gmm_log_prob rows the same bits alone, in "
+        f"requests, in one call and chunked; ties to first index")
     report["errs"] = errs
 
 
@@ -329,11 +408,13 @@ def phase_main_path(dev, report):
 
     def counts():
         return {"gmm_logpdf": gmm_logpdf.launches,
+                "gmm_log_prob": gmm_logpdf.log_prob_launches,
                 "estep_stats": estep_stats.launches,
                 "kmeans_assign": kmeans_assign.launches,
                 "kmeans_sweep_stats": kmeans_assign.sweep_launches}
 
-    gmm_logpdf.launches = estep_stats.launches = 0
+    gmm_logpdf.launches = gmm_logpdf.log_prob_launches = 0
+    estep_stats.launches = 0
     kmeans_assign.launches = kmeans_assign.sweep_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -346,8 +427,8 @@ def phase_main_path(dev, report):
     ll = float(score(fed.global_gmm, ds.x_train, config=cfg))
     rows = np.concatenate([ds.x_test_in, ds.x_test_ood])
     scores = np.concatenate([
-        -log_prob(fed.global_gmm, rows[i:i + 128], cfg).cpu().numpy()
-        for i in range(0, len(rows), 128)])
+        -log_prob(fed.global_gmm, rows[i:i + REQUEST_ROWS], cfg).cpu().numpy()
+        for i in range(0, len(rows), REQUEST_ROWS)])
     torch.cuda.synchronize()
     t_total = time.perf_counter() - t0
     launches = counts()
@@ -360,9 +441,13 @@ def phase_main_path(dev, report):
     log(f"phase 3: global avg loglik {ll:.6f}, AUC-PR {auc:.6f}, |S| "
         f"{fed.synthetic.shape[0]}, local EM iterations {iters}")
     log(f"phase 3: comm {comm._asdict()}, {comm.total_mb:.4f} MiB")
+    requests = -(-len(rows) // REQUEST_ROWS)
     log(f"phase 3: launches on the main path {launches} (the fused Lloyd "
         f"sweeps launch kmeans_sweep_stats, which holds kmeans_assign's "
-        f"assignment core; the assignment-only entry is off this path)")
+        f"assignment core; scoring launches gmm_log_prob, which holds "
+        f"gmm_logpdf's core: 1 for the fitness score, {requests} for the "
+        f"{REQUEST_ROWS}-row anomaly requests; the assignment-only and "
+        f"per-component entries are off this path)")
     up = CLIENTS * (gmm_payload_floats(K, D, True) + 1)
     check(comm.rounds == 1 and comm.uplink_floats == up,
           f"uplink_floats {comm.uplink_floats} != closed form {up}")
@@ -375,6 +460,12 @@ def phase_main_path(dev, report):
     for name in PATH_KERNELS:
         check(launches[name] > 0,
               f"kernel {name} was not launched on the main path")
+    for name in OFF_PATH_KERNELS:
+        check(launches[name] == 0,
+              f"kernel {name} was launched on the main path")
+    check(launches["gmm_log_prob"] == 1 + requests,
+          f"gmm_log_prob launched {launches['gmm_log_prob']} times, not once "
+          f"for the score and once per request ({1 + requests})")
 
     t0 = time.perf_counter()
     central = GMMEstimator(K, device=dev.type).fit(ds.x_train, seed=0)
@@ -385,7 +476,8 @@ def phase_main_path(dev, report):
     log(f"phase 3: central GMM({K}) avg loglik {ll_central:.6f} "
         f"({t_central:.3f} s, {int(central.result_.n_iter)} EM iterations)")
     report.update(launches=launches, fit_s=t_fit, total_s=t_total, ll=ll,
-                  auc=auc, ll_central=ll_central, split=split, ds=ds)
+                  auc=auc, ll_central=ll_central, split=split, ds=ds,
+                  gmm=fed.global_gmm, requests=rows)
 
 
 # ----------------------------------------------------------------------
@@ -482,19 +574,6 @@ def phase_times(dev, report):
     from repro_torch.kernels import ref
     from repro_torch.kernels.ops import pack_params
 
-    def turns(kern, plain):
-        ks, ps = [], []
-        for _ in range(2):
-            ks.append(graph_ms(kern))
-            ps.append(graph_ms(plain))
-        return ks, ps
-
-    def bound(nbytes, flops):
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_ops = flops / PEAK_F32_FLOPS * 1e3
-        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                     else "operations")
-
     def onehot_sweep(x, w, ct, c2):
         """The fused sweep as an assignment kernel and one-hot ops (what
         kmeans_sweep_stats replaces): idx and d2 from kmeans_assign, then
@@ -507,7 +586,7 @@ def phase_times(dev, report):
 
     rng = np.random.default_rng(9)
     rows = {}
-    # gmm_logpdf: scoring the 60,000 training rows
+    # gmm_logpdf and gmm_log_prob: scoring the 60,000 training rows
     x, mu, var, lw = model_inputs(rng, N_TRAIN, D, K, dev)
     a, b, c = pack_params(mu, var, lw)
     n = N_TRAIN
@@ -515,6 +594,10 @@ def phase_times(dev, report):
         lambda: gmm_logpdf.gmm_logpdf(x, a, b, c),
         lambda: ref.gmm_logpdf_packed(x, a, b, c),
         n * (D + K) * 4, 4 * n * D * K)
+    rows["gmm_log_prob"] = (
+        lambda: gmm_logpdf.gmm_log_prob(x, a, b, c),
+        lambda: ref.gmm_log_prob_packed(x, a, b, c),
+        n * (D + 1) * 4, 4 * n * D * K)
     # estep_stats: one iteration of the 20 batched local fits
     xe, mue, vare, lwe = model_inputs(rng, N_PAD, D, K, dev, batch=CLIENTS)
     we = torch.as_tensor(report["split"].mask, device=dev)
@@ -553,6 +636,8 @@ def phase_times(dev, report):
     ks, ps = turns(rows["kmeans_sweep_stats"][0],
                    lambda: onehot_sweep(xe, we, ct, c2))
     out[-1]["composite_ms"] = min(ps)
+    phase_log_prob_times(dev, x, a, b, c, mu, var, lw,
+                         next(e for e in out if e["name"] == "gmm_log_prob"))
     log(f"phase 5: kmeans_sweep_stats at ({CLIENTS}, {N_PAD}): {ks[0]:.5f} / "
         f"{ks[1]:.5f} ms; the assignment kernel + one-hot ops it replaces "
         f"{ps[0]:.5f} / {ps[1]:.5f} ms")
@@ -585,6 +670,69 @@ def phase_times(dev, report):
             f"{ks[1]:.5f} ms; assignment kernel + one-hot ops {ps[0]:.5f} / "
             f"{ps[1]:.5f} ms; bound {b_ms:.5f} ms by {b_by}")
     report["kernels"] = out
+
+
+def phase_log_prob_times(dev, x, a, b, c, mu, var, lw, entry):
+    """The row log density against what it replaces, each timed twice in
+    turns: the kernel beside the per-component kernel + ``torch.logsumexp``
+    (the earlier scoring) and beside cuBLAS (``torch.addmm`` of [x*x, x] and
+    [A; B], built beforehand, TF32 off) + ``torch.logsumexp``; both entries
+    at one 128-row request; then the whole fused ``_log_prob_block``
+    (packing included) at 60,000 and 1,000,000 rows against the same two."""
+    import torch
+    from repro_torch.core.em import _log_prob_block
+    from repro_torch.core.gmm import GMM
+    from repro_torch.kernels import gmm_logpdf, ops
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+
+    def composites(xs, a, b, c):
+        xcat = torch.cat([xs * xs, xs], dim=1)
+        wcat = torch.cat([a, b], dim=0)
+        return (lambda: torch.logsumexp(gmm_logpdf.gmm_logpdf(xs, a, b, c),
+                                        dim=-1),
+                lambda: torch.logsumexp(torch.addmm(c, xcat, wcat), dim=-1))
+
+    two_pass, cublas = composites(x, a, b, c)
+    ks, ps = turns(lambda: gmm_logpdf.gmm_log_prob(x, a, b, c), two_pass)
+    _, cs = turns(lambda: gmm_logpdf.gmm_log_prob(x, a, b, c), cublas)
+    entry.update(composite_ms=min(ps), cublas_ms=min(cs))
+    log(f"phase 5: gmm_log_prob at ({N_TRAIN}, {D}, {K}): {ks[0]:.5f} / "
+        f"{ks[1]:.5f} ms; gmm_logpdf + torch.logsumexp {ps[0]:.5f} / "
+        f"{ps[1]:.5f} ms; cuBLAS addmm + torch.logsumexp {cs[0]:.5f} / "
+        f"{cs[1]:.5f} ms")
+    xr = x[:REQUEST_ROWS]
+    t = [graph_ms(lambda: torch.neg(xr)) for _ in range(2)]
+    log(f"phase 5: the replay floor, one elementwise kernel on a "
+        f"({REQUEST_ROWS}, {D}) tensor: {t[0]:.5f} / {t[1]:.5f} ms")
+    for name, fn, nbytes in (
+            ("gmm_logpdf", gmm_logpdf.gmm_logpdf, (D + K) * 4),
+            ("gmm_log_prob", gmm_logpdf.gmm_log_prob, (D + 1) * 4)):
+        t = [graph_ms(lambda: fn(xr, a, b, c)) for _ in range(2)]
+        b_ms, b_by = bound(REQUEST_ROWS * nbytes, 4 * REQUEST_ROWS * D * K)
+        log(f"phase 5: {name} at ({REQUEST_ROWS}, {D}, {K}): {t[0]:.5f} / "
+            f"{t[1]:.5f} ms, bound {b_ms:.6f} ms by {b_by}")
+    g = GMM(torch.exp(lw), mu, var)
+    for n in (N_TRAIN, 1_000_000):
+        gen = torch.Generator(device=dev).manual_seed(n)
+        xs = 2.0 * torch.randn((n, D), generator=gen, device=dev)
+        pa, pb, pc = ops.pack_params(g.means, g.covs, torch.log(g.weights))
+        two_pass_block = lambda: torch.logsumexp(
+            ops.gmm_logpdf(xs, g.means, g.covs, torch.log(g.weights)), dim=-1)
+        _, cublas = composites(xs, pa, pb, pc)
+        fused = lambda: _log_prob_block(g, xs, "fused")
+        got, want = fused(), cublas()
+        torch.cuda.synchronize()
+        close(got, want, 2e-4, 2e-4, f"fused _log_prob_block vs cuBLAS at {n}")
+        ks, ps = turns(fused, two_pass_block)
+        _, cs = turns(fused, cublas)
+        b_ms, b_by = bound(n * (D + 1) * 4, 4 * n * D * K)
+        log(f"phase 5: fused _log_prob_block at ({n}, {D}, {K}): {ks[0]:.5f} "
+            f"/ {ks[1]:.5f} ms (bound {b_ms:.5f} ms by {b_by}); "
+            f"gmm_logpdf + torch.logsumexp {ps[0]:.5f} / {ps[1]:.5f} ms; "
+            f"cuBLAS addmm + torch.logsumexp on pre-built operands "
+            f"{cs[0]:.5f} / {cs[1]:.5f} ms")
+        del xs, got, want
 
 
 # ----------------------------------------------------------------------
@@ -649,6 +797,61 @@ def phase_trace(dev, report):
         log(f"phase 6:   {ms:10.3f} ms  {name[:100]}")
 
 
+def phase_request_trace(dev, report):
+    """The device work of one 128-row anomaly request: phase 3's requests
+    run again under ``torch.profiler``, their device events counted by
+    name. Only an error of the profiler itself, or a trace with no device
+    time, leaves it "not measured"."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api import FitConfig, log_prob
+    rows, gmm = report["requests"], report["gmm"]
+    cfg = FitConfig(device=dev.type)
+    starts = range(0, len(rows), REQUEST_ROWS)
+
+    def run():  # as phase 3 sends them; the scores are checked on the host
+        for i in starts:
+            scores = -log_prob(gmm, rows[i:i + REQUEST_ROWS], cfg).cpu()
+            check(bool(torch.isfinite(scores).all()),
+                  "non-finite request scores")
+
+    run()
+    try:
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as err:  # the profiler only: report, do not fail
+        log(f"phase 6: request trace not measured ({type(err).__name__}: "
+            f"{err})")
+        return
+    run()
+    torch.cuda.synchronize()
+    try:
+        prof.stop()
+        by_name: dict = {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                cnt, us = by_name.get(ev.name, (0, 0.0))
+                by_name[ev.name] = (cnt + 1, us + ev.time_range.elapsed_us())
+    except Exception as err:  # the profiler only: report, do not fail
+        log(f"phase 6: request trace not measured ({type(err).__name__}: "
+            f"{err})")
+        return
+    if not by_name:
+        log("phase 6: request trace not measured (no device events)")
+        return
+    m = len(starts)
+    kernels = sum(cnt for name, (cnt, _) in by_name.items()
+                  if not name.startswith(("Memcpy", "Memset")))
+    log(f"phase 6: {m} anomaly requests of {REQUEST_ROWS} rows: "
+        f"{kernels / m:.2f} kernel launches and "
+        f"{sum(us for _, us in by_name.values()) / m:.3f} us of device time "
+        f"per request")
+    for name, (cnt, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
+        log(f"phase 6:   {cnt / m:5.2f} a request, {us / m:8.3f} us a "
+            f"request  {name[:100]}")
+
+
 # ----------------------------------------------------------------------
 
 def main() -> int:
@@ -694,7 +897,7 @@ def main() -> int:
         failures.append("build")
     phases = [("kernels", phase_kernels), ("main path", phase_main_path),
               ("em agreement", phase_em_agreement), ("times", phase_times),
-              ("trace", phase_trace)]
+              ("trace", phase_trace), ("request trace", phase_request_trace)]
     for name, fn in phases:
         if failures:
             log(f"skipping phase {name!r} after a failure")

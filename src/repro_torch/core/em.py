@@ -237,13 +237,13 @@ def em_step(gmm: GMM, x: torch.Tensor,
 
 def _log_prob_block(gmm: GMM, xb: torch.Tensor, backend: str) -> torch.Tensor:
     """Mixture log density of one row block, (R, d) -> (R,). The fused
-    backend takes the (R, K) per-component density from the CUDA
-    ``gmm_logpdf`` kernel (diagonal only); reference uses
-    ``GMM.log_prob``."""
+    backend runs the CUDA ``gmm_log_prob`` kernel (diagonal only), which
+    sums each row's logsumexp in the kernel, so the (R, K) per-component
+    block is never written; reference uses ``GMM.log_prob``."""
     if backend == "fused":
         from repro_torch.kernels import ops
-        lp = ops.gmm_logpdf(xb, gmm.means, gmm.covs, torch.log(gmm.weights))
-        return torch.logsumexp(lp, dim=-1).to(xb.dtype)
+        return ops.gmm_log_prob(xb, gmm.means, gmm.covs,
+                                torch.log(gmm.weights)).to(xb.dtype)
     return gmm.log_prob(xb)
 
 

@@ -1,12 +1,13 @@
 """Hand-written CUDA kernels for the EM hot path (ports of the Pallas
 kernels in ``repro.kernels``).
 
-* ``ops``: the model-level entry points (``gmm_logpdf``, ``estep_stats``,
-  ``kmeans_assign``, ``kmeans_sweep``), which pack parameters and call the
-  wrappers;
+* ``ops``: the model-level entry points (``gmm_logpdf``, ``gmm_log_prob``,
+  ``estep_stats``, ``kmeans_assign``, ``kmeans_sweep``), which pack
+  parameters and call the wrappers;
 * ``gmm_logpdf``, ``estep_stats``, ``kmeans_assign``: one launch wrapper
-  module per CUDA source, each with its ``launches`` count
-  (``kmeans_assign`` also wraps the sweep kernel, ``sweep_launches``);
+  module per CUDA source, each with its ``launches`` count (``gmm_logpdf``
+  also wraps the row log-density entry, ``log_prob_launches``;
+  ``kmeans_assign`` the sweep kernel, ``sweep_launches``);
 * ``ref``: the plain PyTorch versions;
 * ``_build``: builds ``csrc/*.cu`` with nvcc at first use.
 """

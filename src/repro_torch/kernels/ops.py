@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.estep_stats import estep_stats as _estep_kernel
+from repro_torch.kernels.gmm_logpdf import gmm_log_prob as _log_prob_kernel
 from repro_torch.kernels.gmm_logpdf import gmm_logpdf as _logpdf_kernel
 from repro_torch.kernels.kmeans_assign import kmeans_assign as _assign_kernel
 from repro_torch.kernels.kmeans_assign import (
@@ -52,6 +53,16 @@ def gmm_logpdf(x: torch.Tensor, means: torch.Tensor, variances: torch.Tensor,
     """Diagonal-GMM per-component log density, (N, d) -> (N, K) float32."""
     a, b, c = pack_params(means, variances, log_weights)
     return _logpdf_kernel(_f32(x), a, b, c)
+
+
+def gmm_log_prob(x: torch.Tensor, means: torch.Tensor,
+                 variances: torch.Tensor,
+                 log_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Diagonal-GMM mixture log density of each row, (N, d) -> (N,)
+    float32: the logsumexp of :func:`gmm_logpdf` over components, with the
+    (N, K) matrix never written."""
+    a, b, c = pack_params(means, variances, log_weights)
+    return _log_prob_kernel(_f32(x), a, b, c)
 
 
 def estep_stats(x: torch.Tensor, means: torch.Tensor, variances: torch.Tensor,

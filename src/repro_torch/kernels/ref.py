@@ -77,6 +77,13 @@ def gmm_logpdf_packed(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return (x * x) @ a + x @ b + c.unsqueeze(-2)
 
 
+def gmm_log_prob_packed(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                        c: torch.Tensor) -> torch.Tensor:
+    """x (N, d), a/b (d, K), c (K,) -> the mixture log density of each row,
+    logsumexp of ``gmm_logpdf_packed`` over components, (N,)."""
+    return torch.logsumexp(gmm_logpdf_packed(x, a, b, c), dim=-1)
+
+
 def estep_stats_packed(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                        b: torch.Tensor, c: torch.Tensor):
     """x (C, N, d), w (C, N), a/b (C, d, K), c (C, K) ->

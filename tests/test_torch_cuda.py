@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import em
+from repro_torch.core.gmm import GMM
 from repro_torch.kernels import estep_stats, gmm_logpdf, kmeans_assign
 from repro_torch.kernels import ops, ref
 
@@ -162,6 +164,62 @@ class TestKernelLaunch:
             np.testing.assert_allclose(g.numpy(), e.numpy(), rtol=2e-4,
                                        atol=2e-4)
 
+    @pytest.mark.parametrize("n,d,k", SHAPES + [
+        (700, 24, 64),    # two 32-component chunks merged
+        (700, 24, 100),   # four, the last of 4
+        (300, 128, 100),  # d = 128: 96 dims from shared memory
+        (1, 24, 30),      # one row
+        (300, 128, 512),  # panels staged 160 components at a time
+        (257, 600, 40),   # 16 at a time
+    ])
+    def test_log_prob_matches_plain(self, n, d, k):
+        """Both entries of csrc/gmm_logpdf.cu against their plain versions;
+        one launch counted a call; two launches give the same bits."""
+        dev = torch.device("cuda")
+        rng = np.random.default_rng(3 * n + k)
+        x, mu, var, lw = (t(a).to(dev) for a in make_inputs(rng, n, d, k))
+        a, b, c = ops.pack_params(mu, var, lw)
+        before = (gmm_logpdf.launches, gmm_logpdf.log_prob_launches)
+        lp = gmm_logpdf.gmm_logpdf(x, a, b, c)
+        got = gmm_logpdf.gmm_log_prob(x, a, b, c)
+        again = gmm_logpdf.gmm_log_prob(x, a, b, c)
+        assert (gmm_logpdf.launches, gmm_logpdf.log_prob_launches) == (
+            before[0] + 1, before[1] + 2)
+        assert got.shape == (n,) and torch.equal(got, again)
+        np.testing.assert_allclose(
+            lp.cpu().numpy(), ref.gmm_logpdf_packed(x, a, b, c).cpu().numpy(),
+            rtol=2e-4, atol=2e-4)
+        np.testing.assert_allclose(
+            got.cpu().numpy(),
+            ref.gmm_log_prob_packed(x, a, b, c).cpu().numpy(),
+            rtol=2e-4, atol=2e-4)
+
+    @pytest.mark.parametrize("k", [30, 100])
+    def test_log_prob_rows_are_stable(self, k):
+        """A row's fused log density has the same bits scored alone, in
+        128-row requests, inside one 60,000-row call, and through
+        ``log_prob_chunked`` at chunk 4096 (a ragged last chunk) and None;
+        at K = 100 across merged 32-component chunks too."""
+        dev = torch.device("cuda")
+        rng = np.random.default_rng(60000 + k)
+        x, mu, var, lw = (t(a).to(dev)
+                          for a in make_inputs(rng, 60000, 24, k))
+        g = GMM(torch.exp(lw), mu, var)
+        full = ops.gmm_log_prob(x, g.means, g.covs, torch.log(g.weights))
+        requests = torch.cat([
+            ops.gmm_log_prob(x[i:i + 128], g.means, g.covs,
+                             torch.log(g.weights))
+            for i in range(0, 60000, 128)])
+        assert torch.equal(requests, full)
+        for i in [0, 1, 127, 128, 255, 256, 59999] + list(
+                rng.integers(0, 60000, 20)):
+            alone = ops.gmm_log_prob(x[i:i + 1], g.means, g.covs,
+                                     torch.log(g.weights))
+            assert torch.equal(alone, full[i:i + 1])
+        for chunk in (None, 4096):
+            assert torch.equal(
+                em.log_prob_chunked(g, x, chunk, backend="fused"), full)
+
     def test_wrapper_rejects_bad_operands(self):
         with pytest.raises(ValueError):  # K beyond the E-step's 512
             z = torch.zeros(1, 8, 4, device="cuda")
@@ -175,3 +233,5 @@ class TestKernelLaunch:
         with pytest.raises(ValueError):
             gmm_logpdf.gmm_logpdf(x.double(), a, a,
                                   torch.zeros(3, device="cuda"))
+        with pytest.raises(ValueError):
+            gmm_logpdf.gmm_log_prob(x, a, a, torch.zeros(2, device="cuda"))

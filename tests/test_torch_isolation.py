@@ -92,13 +92,14 @@ def test_cpu_tensors_take_the_plain_versions():
     rng = np.random.default_rng(1)
     x = torch.as_tensor(rng.normal(size=(20, 3)), dtype=torch.float32)
     mu = torch.as_tensor(rng.normal(size=(4, 3)), dtype=torch.float32)
-    counts = (gmm_logpdf.launches, estep_stats.launches,
-              kmeans_assign.launches)
+    counts = (gmm_logpdf.launches, gmm_logpdf.log_prob_launches,
+              estep_stats.launches, kmeans_assign.launches)
     ops.gmm_logpdf(x, mu, torch.ones(4, 3))
+    ops.gmm_log_prob(x, mu, torch.ones(4, 3), torch.full((4,), -1.3863))
     ops.estep_stats(x, mu, torch.ones(4, 3), torch.full((4,), -1.3863))
     ops.kmeans_assign(x, mu)
-    assert counts == (gmm_logpdf.launches, estep_stats.launches,
-                      kmeans_assign.launches)
+    assert counts == (gmm_logpdf.launches, gmm_logpdf.log_prob_launches,
+                      estep_stats.launches, kmeans_assign.launches)
 
 
 def test_auto_backend_raises_on_a_card_other_than_hopper(monkeypatch):

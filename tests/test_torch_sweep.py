@@ -151,7 +151,7 @@ def test_plain_sweep_is_the_onehot_formula():
 @pytest.mark.parametrize("name,headers", [
     ("estep_stats", ["tile_reduce.cuh"]),
     ("kmeans_assign", ["tile_reduce.cuh"]),
-    ("gmm_logpdf", []),
+    ("gmm_logpdf", ["tile_reduce.cuh"]),
 ])
 def test_sources_of_lists_included_headers(name, headers):
     got = [p.name for p in _build.sources_of(name)]
@@ -164,13 +164,17 @@ def test_library_path_follows_an_included_header(tmp_path, monkeypatch):
     for p in _build.CSRC.iterdir():
         (tmp_path / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
+    unused = tmp_path / "unused.cuh"
+    unused.write_bytes(b"#pragma once\n")
     before = {n: _build.library_path(n) for n in _build.SOURCES}
+    unused.write_bytes(b"#pragma once\n// edited\n")
+    assert {n: _build.library_path(n) for n in _build.SOURCES} == before
     hdr = tmp_path / "tile_reduce.cuh"
     hdr.write_bytes(hdr.read_bytes() + b"\n// edited\n")
     after = {n: _build.library_path(n) for n in _build.SOURCES}
     assert after["estep_stats"] != before["estep_stats"]
     assert after["kmeans_assign"] != before["kmeans_assign"]
-    assert after["gmm_logpdf"] == before["gmm_logpdf"]
+    assert after["gmm_logpdf"] != before["gmm_logpdf"]
 
 
 @pytest.mark.parametrize("problems,tiles,slots", [
