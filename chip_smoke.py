@@ -34,7 +34,16 @@ Phases (each failure makes the exit code non-zero):
      operands) + ``torch.logsumexp``;
   6. the main path's device time by kernel (``torch.profiler``), with the
      count of cuBLAS GEMM launches; the device work of each 128-row anomaly
-     request.
+     request;
+  7. the paper's comparison on phase 3's split: DEM with its three inits,
+     FedEM (participation 0.5, 2 local epochs), FedKMeans and FedGenGMM with
+     per-client BIC selection (K_c in 10, 20, 30, 40), each with its rounds,
+     communication, log-likelihood, AUC-PR (FedKMeans: inertia), wall time,
+     device busy time and kernel launches, every round's launches checked;
+     the rounds and uplink of FedGenGMM against each DEM init (Table 4);
+     fused DEM held to reference DEM within 1e-4 from one injected init;
+     per-client and server-side BIC on planted clients with ragged K_c,
+     on the card against the same run on the CPU.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the repository
@@ -185,6 +194,23 @@ def model_inputs(rng, n, d, k, dev, batch=None):
     lw = np.log(rng.dirichlet(np.ones(k), size=lead or None))
     return tuple(torch.as_tensor(a, dtype=torch.float32, device=dev)
                  for a in (x, mu, var, lw))
+
+
+def kernel_counts() -> dict:
+    """Every kernel entry's launch count."""
+    from repro_torch.kernels import estep_stats, gmm_logpdf, kmeans_assign
+    return {"gmm_logpdf": gmm_logpdf.launches,
+            "gmm_log_prob": gmm_logpdf.log_prob_launches,
+            "estep_stats": estep_stats.launches,
+            "kmeans_assign": kmeans_assign.launches,
+            "kmeans_sweep_stats": kmeans_assign.sweep_launches}
+
+
+def reset_counts():
+    from repro_torch.kernels import estep_stats, gmm_logpdf, kmeans_assign
+    gmm_logpdf.launches = gmm_logpdf.log_prob_launches = 0
+    estep_stats.launches = 0
+    kmeans_assign.launches = kmeans_assign.sweep_launches = 0
 
 
 # ----------------------------------------------------------------------
@@ -395,7 +421,6 @@ def phase_main_path(dev, report):
     from repro_torch.core.partition import partition
     from repro_torch.data.datasets import mnist_like
     from repro_torch.fed.ledger import gmm_payload_floats
-    from repro_torch.kernels import estep_stats, gmm_logpdf, kmeans_assign
 
     t0 = time.perf_counter()
     ds = mnist_like(np.random.default_rng(0), n_train=N_TRAIN)
@@ -406,16 +431,7 @@ def phase_main_path(dev, report):
         f"({time.perf_counter() - t0:.1f} s on the host)")
     check(split.data.shape == (CLIENTS, N_PAD, D), "unexpected split shape")
 
-    def counts():
-        return {"gmm_logpdf": gmm_logpdf.launches,
-                "gmm_log_prob": gmm_logpdf.log_prob_launches,
-                "estep_stats": estep_stats.launches,
-                "kmeans_assign": kmeans_assign.launches,
-                "kmeans_sweep_stats": kmeans_assign.sweep_launches}
-
-    gmm_logpdf.launches = gmm_logpdf.log_prob_launches = 0
-    estep_stats.launches = 0
-    kmeans_assign.launches = kmeans_assign.sweep_launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fed = FedGenGMM(k_clients=K, k_global=K, h=H,
@@ -431,7 +447,7 @@ def phase_main_path(dev, report):
         for i in range(0, len(rows), REQUEST_ROWS)])
     torch.cuda.synchronize()
     t_total = time.perf_counter() - t0
-    launches = counts()
+    launches = kernel_counts()
     labels = np.r_[np.zeros(len(ds.x_test_in)), np.ones(len(ds.x_test_ood))]
     auc = auc_pr(scores, labels)
     comm = fed.comm
@@ -854,6 +870,313 @@ def phase_request_trace(dev, report):
 
 # ----------------------------------------------------------------------
 
+# ----------------------------------------------------------------------
+# Phase 7: the paper's comparison on the card
+# ----------------------------------------------------------------------
+
+K_CANDIDATES = (10, 20, 30, 40)
+ROUND_KERNELS = ("estep_stats", "kmeans_sweep_stats")
+# BIC where it binds: a planted mixture of 6 components, 8 sigma and more
+# apart, at d = 24; client c holds PLANTED_KC[c] of them (a window starting
+# at component c), 250 rows each, so the true K_c are ragged.
+PLANTED_K, PLANTED_ROWS, PLANTED_KC = 6, 250, (1, 2, 3, 4, 5, 6, 3, 2)
+PLANTED_CANDIDATES = tuple(range(1, 8))
+
+
+def planted_split(seed: int):
+    """The planted clients as a padded ``ClientSplit``, and their rows."""
+    import numpy as np
+    from repro_torch.core.partition import ClientSplit
+
+    rng = np.random.default_rng(seed)
+    mus = rng.normal(0, 1.0, (PLANTED_K, D))
+    parts, counts = [], []
+    for c, kc in enumerate(PLANTED_KC):
+        y = np.repeat((np.arange(kc) + c) % PLANTED_K, PLANTED_ROWS)
+        parts.append((mus[y] + rng.normal(0, 0.4, (len(y), D)))
+                     .astype(np.float32))
+        counts.append(np.bincount(y, minlength=PLANTED_K))
+    n = max(len(p) for p in parts)
+    data = np.zeros((len(parts), n, D), np.float32)
+    mask = np.zeros((len(parts), n), np.float32)
+    for c, p in enumerate(parts):
+        data[c, :len(p)], mask[c, :len(p)] = p, 1.0
+    return (ClientSplit(data, mask, np.array([len(p) for p in parts]),
+                        np.array(counts)), np.concatenate(parts))
+
+
+def bic_where_it_binds(dev):
+    """FedGenGMM with per-client and server-side BIC on the planted clients,
+    on the card and on the CPU from the same seed: the card must select the
+    planted, ragged K_c as the CPU does, merge and count them, and launch
+    one ``gmm_log_prob`` per client and candidate. The synthetic rows are
+    drawn on the model's device, so the two global models are held to each
+    other only within 0.05 nats a row."""
+    import numpy as np
+    import torch
+    from repro_torch.api import FedGenGMM, FitConfig, score
+    from repro_torch.core.config import derive_seed
+    from repro_torch.core.fedgen import train_locals_bic_cfg
+    from repro_torch.fed.ledger import gmm_payload_floats
+
+    split, x = planted_split(0)
+    c = len(PLANTED_KC)
+    out, took = {}, {}
+    for where in (dev.type, "cpu"):
+        t0 = time.perf_counter()
+        cfg = FitConfig(device=where)
+        reset_counts()
+        fed = FedGenGMM(k_candidates=PLANTED_CANDIDATES, k_global=PLANTED_K,
+                        h=H, config=cfg).run(split, seed=0)
+        launches = kernel_counts()
+        _, bics = train_locals_bic_cfg(
+            derive_seed(0, "local"), torch.as_tensor(split.data).to(where),
+            torch.as_tensor(split.mask).to(where), PLANTED_CANDIDATES, cfg)
+        server = FedGenGMM(k_candidates=PLANTED_CANDIDATES, h=H,
+                           config=cfg).run(split, seed=0)
+        out[where] = (fed, bics, float(score(fed.global_gmm, x, config=cfg)),
+                      server.global_gmm.n_components, launches)
+        took[where] = time.perf_counter() - t0
+    fed, bics, ll, k_server, launches = out[dev.type]
+    cfed, cbics, cll, ck_server, _ = out["cpu"]
+    ks = [g.n_components for g in fed.local_gmms]
+    cks = [g.n_components for g in cfed.local_gmms]
+    rel = max(abs(b[k] - cb[k]) / abs(cb[k])
+              for b, cb in zip(bics, cbics) for k in PLANTED_CANDIDATES)
+    rel_sel = max(abs(b[k] - cb[k]) / abs(cb[k])
+                  for b, cb, k in zip(bics, cbics, ks))
+    up = sum(gmm_payload_floats(k, D, True) + 1 for k in ks)
+    log(f"phase 7: BIC where it binds (planted K_c {list(PLANTED_KC)}, "
+        f"candidates {PLANTED_CANDIDATES}): card K_c {ks}, CPU K_c {cks}; "
+        f"uplink {fed.comm.uplink_floats} floats (closed form {up}), |S| "
+        f"{fed.synthetic.shape[0]}; BIC card against CPU: at the selected K "
+        f"{rel_sel:.3e} relative (held to 1e-4), over every candidate "
+        f"{rel:.3e}; global avg loglik card {ll:.6f}, CPU {cll:.6f}; "
+        f"server-side K card {k_server}, CPU {ck_server}; gmm_log_prob "
+        f"launches {launches['gmm_log_prob']}; took {took[dev.type]:.1f} s "
+        f"on the card, {took['cpu']:.1f} s on the CPU")
+    check(ks == cks == list(PLANTED_KC),
+          f"BIC selected {ks} on the card, {cks} on the CPU, planted "
+          f"{list(PLANTED_KC)}")
+    check(len(set(ks)) > 1, "the planted K_c are not ragged")
+    check(fed.comm.rounds == 1 and fed.comm.uplink_floats == up,
+          f"uplink {fed.comm.uplink_floats} != closed form {up}")
+    check(fed.synthetic.shape == (H * sum(ks), D)
+          and fed.global_gmm.n_components == PLANTED_K,
+          "the merged model does not follow the selected K_c")
+    check(rel_sel <= 1e-4, f"selected-K BIC card against CPU {rel_sel}")
+    check(abs(ll - cll) <= 0.05 and np.isfinite(ll),
+          f"global avg loglik card {ll} against CPU {cll}")
+    check(k_server == ck_server == PLANTED_K,
+          f"server-side BIC chose {k_server} on the card, {ck_server} on the "
+          f"CPU")
+    check(launches["gmm_log_prob"] == c * len(PLANTED_CANDIDATES)
+          and launches["estep_stats"] > 0,
+          f"launches of the card's BIC run {launches}")
+
+
+def device_busy_ms(fn):
+    """Device busy time (ms) of ``fn()`` under ``torch.profiler``, summed
+    over its device events; None where the profiler fails or records
+    nothing (``fn`` itself fails the phase like any other call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
+    except Exception:  # the profiler only: report, do not fail
+        return None
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        try:
+            prof.stop()
+            busy = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                       if ev.device_type == torch.autograd.DeviceType.CUDA)
+        except Exception:  # the profiler only: report, do not fail
+            busy = 0.0
+    return busy / 1e3 or None
+
+
+def counting_clients(split, dev):
+    """Phase 3's split on the card as ``SplitClients`` whose
+    ``reduce_clients`` (one call a round, plus FedKMeans' rescore) records
+    the round kernels' launches of each call in ``per_call``."""
+    from repro_torch.convert import split_to_clients
+    from repro_torch.fed.runtime import SplitClients
+
+    class Counting(SplitClients):
+        def reduce_clients(self, *args, **kwargs):
+            before = kernel_counts()
+            out = super().reduce_clients(*args, **kwargs)
+            after = kernel_counts()
+            self.per_call.append({k: after[k] - before[k]
+                                  for k in ROUND_KERNELS})
+            return out
+
+    base = split_to_clients(split, dev)
+    clients = Counting(base.data, base.mask, base.sizes, split)
+    clients.per_call = []
+    return clients
+
+
+def phase_paper_comparison(dev, report):
+    """DEM (three inits), FedEM, FedKMeans and FedGenGMM with per-client BIC
+    on phase 3's split, each run once timed and counted, then once under
+    the profiler for its device busy time; then fused against reference
+    DEM from one injected init."""
+    import numpy as np
+    import torch
+    from repro_torch.api import (DEM, FedEM, FedGenGMM, FedKMeans,
+                                 FitConfig, fit_federated, log_prob, score)
+    from repro_torch.core.config import derive_seed
+    from repro_torch.core.dem import DEMStrategy, _broadcast
+    from repro_torch.core.fedgen import train_locals_bic_cfg
+    from repro_torch.core.metrics import auc_pr
+    from repro_torch.fed.runtime import run_rounds
+    from repro_torch.fed.strategies import FedKMeansStrategy
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    ds, split = report["ds"], report["split"]
+    clients = counting_clients(split, dev)
+    cfg = FitConfig(device=dev.type)
+    rows = report["requests"]
+    labels = np.r_[np.zeros(len(ds.x_test_in)), np.ones(len(ds.x_test_ood))]
+    runs = [
+        ("DEM separated", lambda: DEM(K, init="separated", config=cfg)),
+        ("DEM pilot", lambda: DEM(K, init="pilot", config=cfg)),
+        ("DEM fed-kmeans", lambda: DEM(K, init="fed-kmeans", config=cfg)),
+        ("FedEM p=0.5 e=2", lambda: FedEM(K, participation=0.5,
+                                          local_epochs=2, config=cfg)),
+        ("FedKMeans", lambda: FedKMeans(K, config=cfg)),
+        ("FedGenGMM BIC", lambda: FedGenGMM(k_candidates=K_CANDIDATES,
+                                            k_global=K, h=H, config=cfg)),
+    ]
+    table = {}
+    for name, make in runs:
+        clients.per_call = []
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = make().run(clients, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_counts()
+        per_call, clients.per_call = clients.per_call, []
+        busy = device_busy_ms(lambda: make().run(clients, seed=0))
+        comm = res.comm
+        line = (f"phase 7: {name}: {comm.rounds} rounds, uplink "
+                f"{comm.uplink_floats} floats, downlink "
+                f"{comm.downlink_floats} floats, {comm.total_mb:.4f} MiB; ")
+        if name == "FedKMeans":
+            inertia = float(res.inertia)
+            check(np.isfinite(inertia), f"{name}: non-finite inertia")
+            line += f"inertia {inertia:.6f}; "
+            gmm = None
+        else:
+            gmm = res.global_gmm
+            for t in (gmm.weights, gmm.means, gmm.covs):
+                check(bool(torch.isfinite(t).all()),
+                      f"{name}: non-finite global model")
+            ll = float(score(gmm, ds.x_train, config=cfg))
+            auc = auc_pr(-log_prob(gmm, rows, cfg).cpu().numpy(), labels)
+            check(np.isfinite(ll) and 0 <= auc <= 1, f"{name}: bad scores")
+            line += f"avg loglik {ll:.6f}, AUC-PR {auc:.6f}; "
+        idle = ("not measured" if busy is None
+                else f"{1 - busy / (wall * 1e3):.4f}")
+        busy_s = "not measured" if busy is None else f"{busy:.3f} ms"
+        log(line + f"wall {wall:.3f} s; device busy of a second, profiled "
+            f"run {busy_s} (idle share of the wall {idle}); launches "
+            f"{launches}")
+        if name.startswith(("DEM", "FedEM", "FedKMeans")):
+            kern = ("kmeans_sweep_stats" if name == "FedKMeans"
+                    else "estep_stats")
+            post = 1 if name == "FedKMeans" else 0
+            check(len(per_call) == comm.rounds + post,
+                  f"{name}: {len(per_call)} client reductions for "
+                  f"{comm.rounds} rounds")
+            per = [c[kern] for c in per_call]
+            check(min(per) > 0, f"{name}: a round launched no {kern}")
+            budget = 100 if name == "FedKMeans" else 200
+            log(f"phase 7:   {kern} launches a round: {min(per)}..{max(per)}"
+                f"; converged {res.converged}"
+                + (" (ran to max_iter)" if comm.rounds >= budget else ""))
+        else:
+            ks = [g.n_components for g in res.local_gmms]
+            check(all(k in K_CANDIDATES for k in ks),
+                  f"{name}: a K_c outside {K_CANDIDATES}: {ks}")
+            log(f"phase 7:   selected K_c {ks} (sum {sum(ks)}, |S| "
+                f"{res.synthetic.shape[0]})")
+            report["fedgen_bic_gmm"] = gmm
+            # the same local fits again (FedGenStrategy's seed path), for
+            # every client's BIC at every candidate
+            _, bics = train_locals_bic_cfg(derive_seed(0, "local"),
+                                           clients.data, clients.mask,
+                                           K_CANDIDATES, cfg)
+            falling = sum(all(b[u] > b[v] for u, v in zip(
+                K_CANDIDATES, K_CANDIDATES[1:])) for b in bics)
+            small, large = (int(np.argmin(split.sizes)),
+                            int(np.argmax(split.sizes)))
+            log(f"phase 7:   BIC falls through every candidate for "
+                f"{falling} of {CLIENTS} clients; BIC by K of the smallest "
+                f"client ({split.sizes[small]} rows) "
+                f"{ {k: round(v, 1) for k, v in bics[small].items()} }, of "
+                f"the largest ({split.sizes[large]} rows) "
+                f"{ {k: round(v, 1) for k, v in bics[large].items()} }")
+        table[name] = (comm, wall)
+    fg, fg_wall = table["FedGenGMM BIC"]
+    log("phase 7: Table 4 on the card: FedGenGMM (BIC) 1 round, "
+        f"{fg.uplink_floats} uplink floats, {fg_wall:.3f} s; " + "; ".join(
+            f"{n}: {c.rounds} rounds ({c.rounds}x), {c.uplink_floats} uplink "
+            f"floats ({c.uplink_floats / fg.uplink_floats:.1f}x), {w:.3f} s"
+            for n, (c, w) in table.items() if n.startswith("DEM")))
+
+    # a FedKMeansStrategy built directly, with its default backend
+    clients.per_call = []
+    direct = fit_federated(clients, strategy=FedKMeansStrategy(k=K), seed=0,
+                           config=cfg, max_rounds=100)
+    per = [c["kmeans_sweep_stats"] for c in clients.per_call]
+    clients.per_call = []
+    log(f"phase 7: FedKMeansStrategy(k={K}) through fit_federated: "
+        f"{direct.comm.rounds} rounds, inertia {float(direct.inertia):.6f}, "
+        f"kmeans_sweep_stats launches a round {min(per)}..{max(per)}")
+    check(len(per) == direct.comm.rounds + 1 and min(per) > 0,
+          "a directly built FedKMeansStrategy round launched no "
+          "kmeans_sweep_stats")
+
+    # the broadcast: the global model expanded to the 20 clients and packed
+    gb = _broadcast(report["fedgen_bic_gmm"], CLIENTS)
+    pack = graph_ms(lambda: ops.pack_params(gb.means, gb.covs,
+                                            torch.log(gb.weights)))
+    log(f"phase 7: packing the broadcast model for one E-step launch at "
+        f"({CLIENTS}, {K}, {D}): {pack:.5f} ms by graph replay")
+
+    # fused against reference DEM from one injected init
+    gmm0 = DEMStrategy(k=K, backend="reference").init_state(0, clients).gmm
+    for tol, max_rounds, held in ((1e-3, 200, True), (0.0, 30, False)):
+        out = {}
+        for backend in ("fused", "reference"):
+            strat = DEMStrategy(k=K, backend=backend, tol=tol)
+            out[backend] = run_rounds(strat, clients, device=dev,
+                                      max_rounds=max_rounds,
+                                      state0=strat.state_from_gmm(gmm0))
+        diff = abs(float(out["fused"].log_likelihood)
+                   - float(out["reference"].log_likelihood))
+        log(f"phase 7: DEM from one injected init, tol={tol}, max "
+            f"{max_rounds} rounds: rounds fused {out['fused'].n_rounds}, "
+            f"reference {out['reference'].n_rounds}; |ll fused - ll "
+            f"reference| = {diff:.3e}"
+            + (" (held to 1e-4)" if held else " (reported)"))
+        if held:
+            check(diff <= 1e-4, f"fused and reference DEM differ by {diff} "
+                  f"> 1e-4 at tol={tol}")
+    bic_where_it_binds(dev)
+    log(f"phase 7: took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: the repository (src/repro_torch) is not beside "
@@ -897,7 +1220,8 @@ def main() -> int:
         failures.append("build")
     phases = [("kernels", phase_kernels), ("main path", phase_main_path),
               ("em agreement", phase_em_agreement), ("times", phase_times),
-              ("trace", phase_trace), ("request trace", phase_request_trace)]
+              ("trace", phase_trace), ("request trace", phase_request_trace),
+              ("paper comparison", phase_paper_comparison)]
     for name, fn in phases:
         if failures:
             log(f"skipping phase {name!r} after a failure")

@@ -1,13 +1,19 @@
-"""repro_torch.api — the port's public estimator surface (main path).
+"""repro_torch.api — the port's public estimator surface.
 
-    from repro_torch.api import FedGenGMM, GMMEstimator
+    from repro_torch.api import DEM, FedGenGMM, GMMEstimator
 
     fed = FedGenGMM(k_clients=30, k_global=30, h=50).run(split)  # on cuda
-    est = GMMEstimator(30, device="cpu").fit(x)
+    bic = FedGenGMM(k_candidates=(10, 20, 30), k_global=30).run(split)
+    dem = DEM(30, init="separated").run(split)
+    est = GMMEstimator(k_candidates=(2, 3, 4), device="cpu").fit(x)
+
+Every name here is also a name of ``repro.api``.
 """
 from repro_torch.core.config import FitConfig
-from repro_torch.api.estimators import (FedGenGMM, GMMEstimator, bic,
-                                        log_prob, score)
+from repro_torch.api.estimators import (DEM, FedEM, FedGenGMM, FedKMeans,
+                                        GMMEstimator, KMeansEstimator, bic,
+                                        fit_federated, log_prob, score)
 
-__all__ = ["FitConfig", "GMMEstimator", "FedGenGMM", "score", "log_prob",
-           "bic"]
+__all__ = ["FitConfig", "GMMEstimator", "KMeansEstimator", "FedGenGMM",
+           "DEM", "FedEM", "FedKMeans", "fit_federated", "score",
+           "log_prob", "bic"]

@@ -36,6 +36,7 @@ def gmm_to_numpy(gmm: GMM) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
 def split_to_clients(split, device="cuda") -> SplitClients:
     """A padded split (``data (C, N, d)``, ``mask (C, N)``, ``sizes (C,)``
     numpy arrays, as ``partition`` makes them in either package) as
-    :class:`SplitClients` on ``device``."""
+    :class:`SplitClients` on ``device``, which keeps ``split``."""
     return SplitClients(_tensor(split.data, device),
-                        _tensor(split.mask, device), np.asarray(split.sizes))
+                        _tensor(split.mask, device), np.asarray(split.sizes),
+                        split)

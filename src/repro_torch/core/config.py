@@ -1,7 +1,6 @@
 """`FitConfig`, the one training configuration every estimator consumes,
 and the backend and device resolvers the engine shares (port of
-``repro/core/config.py``, resident half: no ``DataSource`` arm and no
-``init`` field, since the main path always initializes from k-means).
+``repro/core/config.py``, resident half: no ``DataSource`` arm).
 
 The port adds ``device``. Entry points run on ``"cuda"`` unless the caller
 asks for ``"cpu"``; asking for CUDA where there is none raises, and nothing
@@ -18,6 +17,7 @@ import torch
 
 ENGINE_BACKENDS = ("auto", "reference", "fused")
 COVARIANCE_TYPES = ("diag", "full")
+INIT_STRATEGIES = ("auto", "kmeans", "separated", "pilot", "fed-kmeans")
 
 TOL_DEFAULTS = {"em": 1e-3, "kmeans": 1e-4}
 MAX_ITER_DEFAULTS = {"em": 200, "kmeans": 100}
@@ -123,6 +123,11 @@ class FitConfig:
     reg_covar : covariance floor added at every M-step.
     tol, max_iter : "auto" resolves per algorithm (:data:`TOL_DEFAULTS`,
         :data:`MAX_ITER_DEFAULTS`); explicit values apply everywhere.
+    init : "auto" | "kmeans" | "separated" | "pilot" | "fed-kmeans": the
+        initialization strategy. Single-model fits and FedGenGMM's local
+        fits take "auto"/"kmeans" (k-means); DEM and FedEM take the paper's
+        three schemes ("auto" = "fed-kmeans" on a split); FedKMeans takes
+        "fed-kmeans" or "separated".
     seed : the root of every generator an estimator derives.
     device : "cuda" (default) or "cpu".
     """
@@ -133,6 +138,7 @@ class FitConfig:
     reg_covar: float = 1e-6
     tol: Union[float, str] = "auto"
     max_iter: Union[int, str] = "auto"
+    init: str = "auto"
     seed: int = 0
     device: str = "cuda"
 
@@ -164,6 +170,9 @@ class FitConfig:
                                  f">= 1, got {self.max_iter!r}")
             object.__setattr__(self, "max_iter",
                                _integral(self.max_iter, "max_iter", 1))
+        if self.init not in INIT_STRATEGIES:
+            raise ValueError(f"init must be one of {INIT_STRATEGIES}, "
+                             f"got {self.init!r}")
         object.__setattr__(self, "seed", _integral(self.seed, "seed", 0))
         try:
             kind = torch.device(self.device).type

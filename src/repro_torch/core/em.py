@@ -1,5 +1,6 @@
 """Expectation-Maximization for GMMs (port of ``repro/core/em.py``,
-resident-array half), plus the streaming-statistics engine.
+resident-array half), plus the streaming-statistics engine and BIC model
+selection.
 
 The engine runs on *stacked* problems: rows ``x (B, N, d)`` with weights
 ``w (B, N)`` and one model per member, every leaf with a leading axis B.
@@ -16,11 +17,11 @@ O(chunk·K) working set.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
-from repro_torch.core.config import (FitConfig, resolve_backend,
+from repro_torch.core.config import (FitConfig, derive_seed, resolve_backend,
                                      resolve_estep_backend)
 from repro_torch.core.gmm import GMM
 
@@ -344,6 +345,28 @@ def init_from_kmeans(seed: int, x: torch.Tensor, k: int,
     return m_step(stats, reg_covar)
 
 
+def init_from_means(means: torch.Tensor, x: torch.Tensor,
+                    sample_weight: Optional[torch.Tensor] = None,
+                    covariance_type: str = "diag",
+                    reg_covar: float = 1e-6) -> GMM:
+    """Init with given centers, uniform weights and the data's (weighted,
+    two-pass) variance as every component's covariance: the DEM baselines'
+    init, where the server proposes centers without seeing client data.
+    x (N, d); zero-weight rows count for nothing."""
+    k, d = means.shape
+    w = _weights(x, sample_weight)
+    wsum = torch.clamp(w.sum(), min=1e-12)
+    mean = torch.sum(x * w.unsqueeze(-1), dim=0) / wsum
+    var = (torch.sum((x - mean) ** 2 * w.unsqueeze(-1), dim=0) / wsum
+           + reg_covar)
+    weights = torch.full((k,), 1.0 / k, dtype=x.dtype, device=x.device)
+    if covariance_type == "diag":
+        covs = var.expand(k, d).contiguous()
+    else:
+        covs = torch.diag(var).expand(k, d, d).contiguous()
+    return GMM(weights, means.to(x), covs)
+
+
 # ----------------------------------------------------------------------
 # Full EM fit
 # ----------------------------------------------------------------------
@@ -379,7 +402,7 @@ def _em_loop(gmm0: GMM, x: torch.Tensor, w: torch.Tensor, tol: float,
     return gmm, ll, it, converged
 
 
-def fit_gmm_cfg(seed: int, x, k: int, config: FitConfig,
+def fit_gmm_cfg(seed, x, k: int, config: FitConfig,
                 sample_weight=None, init_gmm: Optional[GMM] = None
                 ) -> EMResult:
     """Train a GMM with EM until the avg-loglik delta drops below the
@@ -387,7 +410,9 @@ def fit_gmm_cfg(seed: int, x, k: int, config: FitConfig,
 
     ``x`` is (N, d), or a batch (B, N, d) of independent fits (the local
     fits of a padded client split, ``sample_weight`` (B, N) masking the
-    padding); the result is then stacked. ``init_gmm`` skips the k-means
+    padding); the result is then stacked. ``seed`` is an int, or for a
+    batch one seed per member: member b then fits as a lone fit seeded
+    with ``seed[b]`` would. ``init_gmm`` skips the k-means
     init. ``config.backend`` selects the E-step and the k-means assignment
     implementation; an integer ``config.chunk_size`` streams the init and
     every E-step.
@@ -417,3 +442,27 @@ def fit_gmm_cfg(seed: int, x, k: int, config: FitConfig,
     if single:
         return EMResult(gmm[0], ll[0], it[0], converged[0])
     return EMResult(gmm, ll, it, converged)
+
+
+def fit_gmm_bic_cfg(seed: int, x, k_candidates: Sequence[int],
+                    config: FitConfig, sample_weight=None
+                    ) -> tuple[EMResult, dict[int, float]]:
+    """TrainGMM of Algorithm 4.1: fit every K in ``k_candidates`` (candidate
+    i seeded with ``derive_seed(seed, i)``), score each fit with
+    :func:`bic_streaming` (one ``gmm_log_prob`` launch a chunk on the fused
+    backend), and return the first fit of least BIC with every candidate's
+    BIC. x (N, d)."""
+    device = config.resolve_device()
+    x = torch.as_tensor(x, device=device).to(torch.float32)
+    w = (None if sample_weight is None else
+         torch.as_tensor(sample_weight, device=device).to(torch.float32))
+    best, best_bic, bics = None, float("inf"), {}
+    for i, k in enumerate(k_candidates):
+        res = fit_gmm_cfg(derive_seed(seed, i), x, k, config, w)
+        b = float(bic_streaming(res.gmm, x, w,
+                                chunk_size=config.resolve_chunk(),
+                                backend=config.backend))
+        bics[k] = b
+        if b < best_bic:
+            best, best_bic = res, b
+    return best, bics

@@ -3,23 +3,25 @@
 
 Pipeline:
   1. local EM per client, all clients as one stacked batch over the padded
-     (C, N, d) split with its 0/1 row mask,
+     (C, N, d) split with its 0/1 row mask (fixed K_c), or per-client BIC
+     selection over candidate Ks (heterogeneous K_c),
   2. a single communication round: clients ship (w, mu, Sigma, |D_c|),
   3. server merge: re-weight by |D_c|/|D|, concatenate, normalize,
   4. the server samples |S| = H * sum_c K_c synthetic rows from the merged
-     mixture and trains the global GMM on S.
+     mixture and trains the global GMM on S (fixed K or BIC selection).
 
-Per-client BIC selection and out-of-core clients come with later slices.
+Out-of-core clients come with a later slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 from repro_torch.core.config import FitConfig, derive_seed, make_generator
-from repro_torch.core.em import EMResult, fit_gmm_cfg
+from repro_torch.core.em import (EMResult, bic_streaming, fit_gmm_bic_cfg,
+                                 fit_gmm_cfg)
 from repro_torch.core.gmm import GMM, merge_gmms
 from repro_torch.fed.ledger import (CommStats, RoundPayload, dtype_itemsize,
                                     payload_floats)
@@ -42,29 +44,76 @@ def train_locals_cfg(seed: int, data: torch.Tensor, mask: torch.Tensor,
     return fit_gmm_cfg(seed, data, k, config, sample_weight=mask)
 
 
+def train_locals_bic_cfg(seed: int, data: torch.Tensor, mask: torch.Tensor,
+                         k_candidates: Sequence[int], config: FitConfig
+                         ) -> tuple[list[EMResult], list[dict[int, float]]]:
+    """Per-client TrainGMM with BIC selection, heterogeneous K_c: data
+    (C, N, d) padded, mask (C, N).
+
+    Each candidate K is fitted for all clients as one stacked batch.
+    Client c's fit of candidate i is seeded as
+    ``fit_gmm_bic_cfg(derive_seed(seed, c), ...)`` seeds it alone, so the
+    selection does not depend on the client's position in the batch. Each
+    client's BIC is scored on its own rows (the mask as sample weight, so
+    n = |D_c|): one ``gmm_log_prob`` launch per client and candidate. The
+    first minimum wins. Returns each client's selected :class:`EMResult`
+    and each client's BIC by candidate."""
+    c = data.shape[0]
+    client_seeds = [derive_seed(seed, i) for i in range(c)]
+    best = [None] * c
+    best_bic = [float("inf")] * c
+    bics = [{} for _ in range(c)]
+    for i, k in enumerate(k_candidates):
+        res = fit_gmm_cfg([derive_seed(s, i) for s in client_seeds], data,
+                          k, config, sample_weight=mask)
+        scores = torch.stack([
+            bic_streaming(res.gmm[m], data[m], mask[m],
+                          chunk_size=config.resolve_chunk(),
+                          backend=config.backend) for m in range(c)])
+        for m, b in enumerate(scores.tolist()):
+            bics[m][k] = b
+            if b < best_bic[m]:
+                best_bic[m] = b
+                best[m] = EMResult(res.gmm[m], res.log_likelihood[m],
+                                   res.n_iter[m], res.converged[m])
+    return best, bics
+
+
 def aggregate_cfg(seed: int, local_gmms: list[GMM], sizes,
-                  config: FitConfig, k_global: int,
-                  h: int = 100) -> tuple[EMResult, torch.Tensor]:
-    """Algorithm 4.1 lines 21-31: merge, sample S, train the global model
-    of ``k_global`` components on S (held on the device)."""
+                  config: FitConfig, k_global: Optional[int] = None,
+                  h: int = 100,
+                  k_candidates: Optional[Sequence[int]] = None
+                  ) -> tuple[EMResult, torch.Tensor]:
+    """Algorithm 4.1 lines 21-31: merge (the local models may differ in K),
+    sample S, train the global model on S (held on the device): of
+    ``k_global`` components, or the BIC choice among ``k_candidates``."""
     merged = merge_gmms(local_gmms, sizes)
     n_synth = h * sum(g.n_components for g in local_gmms)
     gen = make_generator(derive_seed(seed, "sample"), merged.device)
     s = merged.sample(gen, n_synth)
-    res = fit_gmm_cfg(derive_seed(seed, "fit"), s, k_global, config)
+    if k_global is not None:
+        res = fit_gmm_cfg(derive_seed(seed, "fit"), s, k_global, config)
+    else:
+        if k_candidates is None:
+            raise ValueError("need k_global or k_candidates")
+        res, _ = fit_gmm_bic_cfg(derive_seed(seed, "fit"), s, k_candidates,
+                                 config)
     return res, s
 
 
 @dataclasses.dataclass(frozen=True)
 class FedGenStrategy:
     """Algorithm 4.1 as a one-shot strategy of the federation runtime: the
-    single round trains every client locally, then merges, samples and
-    refits on the server. Uplink is each client's (K, 2d+1) parameter block
+    single round trains every client locally (fixed ``k_clients``, or BIC
+    selection over ``k_candidates``, which makes K_c heterogeneous), then
+    merges, samples and refits on the server (``k_global``, or BIC over
+    ``k_candidates``). Uplink is each client's (K_c, 2d+1) parameter block
     + |D_c|, downlink the global broadcast, one round by construction."""
 
     config: FitConfig
-    k_clients: int
-    k_global: int
+    k_clients: Optional[int] = None
+    k_global: Optional[int] = None
+    k_candidates: Optional[tuple] = None
     h: int = 100
 
     one_shot = True
@@ -75,15 +124,24 @@ class FedGenStrategy:
                 "seed_agg": derive_seed(seed, "aggregate")}
 
     def run_once(self, state: dict, backend) -> dict:
-        stacked = train_locals_cfg(state["seed_local"], backend.data,
-                                   backend.mask, self.k_clients, self.config)
-        local_gmms = [stacked.gmm[i] for i in range(backend.num_clients)]
-        local_results = [
-            EMResult(g, stacked.log_likelihood[i], stacked.n_iter[i],
-                     stacked.converged[i]) for i, g in enumerate(local_gmms)]
+        if self.k_clients is not None:
+            stacked = train_locals_cfg(state["seed_local"], backend.data,
+                                       backend.mask, self.k_clients,
+                                       self.config)
+            local_results = [
+                EMResult(stacked.gmm[i], stacked.log_likelihood[i],
+                         stacked.n_iter[i], stacked.converged[i])
+                for i in range(backend.num_clients)]
+        else:
+            if self.k_candidates is None:
+                raise ValueError("need k_clients or k_candidates")
+            local_results, _ = train_locals_bic_cfg(
+                state["seed_local"], backend.data, backend.mask,
+                self.k_candidates, self.config)
+        local_gmms = [r.gmm for r in local_results]
         res, synth = aggregate_cfg(state["seed_agg"], local_gmms,
                                    backend.sizes, self.config, self.k_global,
-                                   h=self.h)
+                                   h=self.h, k_candidates=self.k_candidates)
         return {"res": res, "synth": synth, "local_gmms": local_gmms,
                 "local_results": local_results}
 
@@ -101,11 +159,18 @@ class FedGenStrategy:
                             state["synth"], comm, state["local_results"])
 
 
-def fedgengmm_cfg(seed: int, clients, config: FitConfig, k_clients: int,
-                  k_global: int, h: int = 100) -> FedGenResult:
+def fedgengmm_cfg(seed: int, clients, config: FitConfig,
+                  k_clients: Optional[int] = None,
+                  k_global: Optional[int] = None,
+                  k_candidates: Optional[Sequence[int]] = None,
+                  h: int = 100) -> FedGenResult:
     """Run the full one-shot pipeline on a padded client split (the
-    cfg-core behind ``repro_torch.api.FedGenGMM``)."""
-    strategy = FedGenStrategy(config=config, k_clients=k_clients,
-                              k_global=k_global, h=h)
+    cfg-core behind ``repro_torch.api.FedGenGMM``): fix ``k_clients``, or
+    pass ``k_candidates`` for per-client BIC selection; fix ``k_global``,
+    or leave it None for server-side BIC selection over ``k_candidates``."""
+    strategy = FedGenStrategy(
+        config=config, k_clients=k_clients, k_global=k_global,
+        k_candidates=None if k_candidates is None else tuple(k_candidates),
+        h=h)
     return run_rounds(strategy, clients, seed=seed,
                       device=config.resolve_device())

@@ -1,5 +1,5 @@
-"""K-means: k-means++ seeding and weighted Lloyd iterations (port of
-``repro/core/kmeans.py``, resident half).
+"""K-means: k-means++ seeding, weighted Lloyd iterations and one-shot
+federated k-means (port of ``repro/core/kmeans.py``, resident half).
 
 Like the EM engine, everything here runs on stacked problems: rows
 ``x (B, N, d)``, weights ``w (B, N)``, centers ``(B, K, d)``. The B axis
@@ -10,18 +10,21 @@ shift drops to ``tol``, and its centers are frozen from then on, as under
 vmap.
 
 Random draws come from explicit torch generators: member b of a call with
-``seed`` draws from ``derive_seed(seed, b)`` and a stage name. The draws
+``seed`` draws from ``derive_seed(seed, b)`` and a stage name. A call may
+instead pass one seed per member; member b then draws what a lone problem
+seeded with ``seed[b]`` would, so one batch stands in for a loop of
+single fits (per-client BIC selection relies on that). The draws
 are not the JAX package's (threefry and Philox never agree), so the seeded
 stages are compared with it statistically, and the deterministic ones
 (``init_centers=``) exactly.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 
-from repro_torch.core.config import (derive_seed, make_generator,
+from repro_torch.core.config import (FitConfig, derive_seed, make_generator,
                                      resolve_backend)
 from repro_torch.core.em import (_weights, _select, reduce_rows,
                                  streaming_map_reduce)
@@ -103,8 +106,19 @@ def _update_block(xb: torch.Tensor, wb: torch.Tensor, centers: torch.Tensor,
 # Seeding
 # ----------------------------------------------------------------------
 
-def _member_seeds(seed: int, b: int) -> list[int]:
-    return [derive_seed(seed, i) for i in range(b)]
+Seed = Union[int, Sequence[int]]
+
+
+def _member_seeds(seed: Seed, b: int) -> list[int]:
+    """The seeds of the ``b`` members of a batch: ``derive_seed(seed, i)``
+    for an integer ``seed``; for a sequence of per-member seeds, the seed
+    member 0 of a lone call with ``seed[i]`` gets."""
+    if not isinstance(seed, (list, tuple)):
+        return [derive_seed(seed, i) for i in range(b)]
+    seeds = [derive_seed(int(s), 0) for s in seed]
+    if len(seeds) != b:
+        raise ValueError(f"{len(seeds)} member seeds for a batch of {b}")
+    return seeds
 
 
 def _uniforms(seeds, stage: str, shape: tuple, device) -> torch.Tensor:
@@ -166,7 +180,7 @@ def _seed_centers(seeds, x: torch.Tensor, w: torch.Tensor, k: int,
     return _kmeanspp(x, w, k, _uniforms(seeds, "kmeans++", (k,), x.device))
 
 
-def kmeans_plusplus(seed: int, x: torch.Tensor, k: int,
+def kmeans_plusplus(seed: Seed, x: torch.Tensor, k: int,
                     sample_weight: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """k-means++ seeding -> (k, d), or (B, k, d) for a batch x (B, N, d).
@@ -230,7 +244,7 @@ def _lower(res: KMeansResult) -> KMeansResult:
     return KMeansResult(*(t[0] for t in res))
 
 
-def kmeans(seed: int, x: torch.Tensor, k: int,
+def kmeans(seed: Seed, x: torch.Tensor, k: int,
            sample_weight: Optional[torch.Tensor] = None,
            max_iter: int = 100, tol: float = 1e-4,
            chunk_size: Optional[int] = None,
@@ -253,7 +267,7 @@ def kmeans(seed: int, x: torch.Tensor, k: int,
                   backend)
 
 
-def kmeans_multi(seed: int, x: torch.Tensor, k: int,
+def kmeans_multi(seed: Seed, x: torch.Tensor, k: int,
                  sample_weight: Optional[torch.Tensor] = None,
                  max_iter: int = 100, tol: float = 1e-4,
                  n_init: int = 4,
@@ -306,3 +320,74 @@ def kmeans_multi(seed: int, x: torch.Tensor, k: int,
         return res._replace(n_iter=res.n_iter + sub.n_iter + pilot_iters)
     res = _lloyd(x, w, best_centers, max_iter, tol, chunk_size, backend)
     return res._replace(n_iter=res.n_iter + pilot_iters)
+
+
+# ----------------------------------------------------------------------
+# Config core and federated k-means
+# ----------------------------------------------------------------------
+
+def kmeans_fit_cfg(seed: Seed, x, k: int, config: FitConfig,
+                   sample_weight=None, n_init: int = 1) -> KMeansResult:
+    """The k-means trainer behind ``repro_torch.api.KMeansEstimator``:
+    :func:`kmeans` (``n_init`` = 1) or :func:`kmeans_multi`, with ``tol``
+    and ``max_iter`` resolved through the "kmeans" defaults (1e-4 / 100)."""
+    device = config.resolve_device()
+    x = torch.as_tensor(x, device=device).to(torch.float32)
+    w = (None if sample_weight is None else
+         torch.as_tensor(sample_weight, device=device).to(torch.float32))
+    tol = config.resolve_tol("kmeans")
+    max_iter = config.resolve_max_iter("kmeans")
+    cs = config.resolve_chunk()
+    if n_init == 1:
+        return kmeans(seed, x, k, w, max_iter, tol, cs, config.backend)
+    return kmeans_multi(seed, x, k, w, max_iter, tol, n_init, cs,
+                        config.backend)
+
+
+def federated_kmeans(seed: int, client_data: torch.Tensor, k_global: int,
+                     k_local: Optional[int] = None,
+                     client_weights: Optional[torch.Tensor] = None,
+                     max_iter: int = 100, chunk_size: Optional[int] = None,
+                     assign_backend: str = "auto") -> torch.Tensor:
+    """One-shot federated k-means (Dennis et al. '21) over padded clients
+    ``client_data (C, N, d)`` with 0/1 ``client_weights (C, N)`` -> global
+    centers ``(k_global, d)``.
+
+    Every client's local k-means runs in one batch (client c draws from
+    member c of ``derive_seed(seed, "local")``); the server then clusters
+    the C·k_local local centers, each weighted by its cluster size (seed
+    ``derive_seed(seed, "server")``)."""
+    k_local = k_local or k_global
+    local = kmeans(derive_seed(seed, "local"), client_data, k_local,
+                   client_weights, max_iter=max_iter, chunk_size=chunk_size,
+                   assign_backend=assign_backend)
+    d = client_data.shape[-1]
+    res = kmeans(derive_seed(seed, "server"), local.centers.reshape(-1, d),
+                 k_global, local.cluster_sizes.reshape(-1),
+                 max_iter=max_iter, assign_backend=assign_backend)
+    return res.centers
+
+
+def lloyd_round_stats(centers: torch.Tensor, x: torch.Tensor,
+                      sample_weight: Optional[torch.Tensor] = None,
+                      assign_backend: str = "auto",
+                      chunk_size: Optional[int] = None):
+    """One weighted Lloyd sweep against fixed centers -> ``(counts (.., K),
+    sums (.., K, d), inertia (..))``: the label statistics one federated
+    k-means client ships each round (Garst et al.). ``x`` is (N, d) or a
+    batch (B, N, d) of clients; ``centers`` (K, d) is broadcast to every
+    member, or (B, K, d) gives one set each. ``assign_backend`` resolves
+    with ``x``'s device; the fused sweep is one ``kmeans_sweep_stats``
+    launch a chunk."""
+    w = _weights(x, sample_weight)
+    if x.ndim == 2:
+        counts, sums, inertia = lloyd_round_stats(
+            centers if centers.ndim == 3 else centers[None], x[None],
+            w[None], assign_backend, chunk_size)
+        return counts[0], sums[0], inertia[0]
+    backend = resolve_backend(assign_backend, x.device)
+    if centers.ndim == 2:
+        centers = centers.expand((x.shape[0],) + centers.shape)
+    return tuple(reduce_rows(
+        lambda xb, wb: _sweep_block(xb, wb, centers, backend),
+        (x, w), chunk_size))

@@ -1,6 +1,6 @@
 """The communication ledger of the federation runtime (port of
-``repro/fed/ledger.py``; the fields of uplink transforms and async rounds
-come with those slices).
+``repro/fed/ledger.py``; the transform and async fields, ``uplink_itemsize``,
+``epsilon_per_round`` and ``staleness``, come with those slices).
 
 Float counts are the primary unit (they are what the paper's Table 4
 compares); ``itemsize`` converts them to wire bytes.
@@ -45,16 +45,23 @@ class CommStats(NamedTuple):
 
 class RoundPayload(NamedTuple):
     """What one communication round moves, summed over the cohort; the
-    round loop multiplies by the realized round count."""
+    round loop multiplies by the realized round count and adds the
+    once-per-run ``extra_*`` traffic (warm-start statistics, the round-0
+    broadcast, a final rescore) once."""
     uplink_floats: int
     downlink_floats: int
     itemsize: int = 4
+    extra_uplink_floats: int = 0
+    extra_downlink_floats: int = 0
 
     def totals(self, rounds: int) -> CommStats:
-        return CommStats(rounds=rounds,
-                         uplink_floats=rounds * self.uplink_floats,
-                         downlink_floats=rounds * self.downlink_floats,
-                         itemsize=self.itemsize)
+        return CommStats(
+            rounds=rounds,
+            uplink_floats=rounds * self.uplink_floats
+            + self.extra_uplink_floats,
+            downlink_floats=rounds * self.downlink_floats
+            + self.extra_downlink_floats,
+            itemsize=self.itemsize)
 
 
 def gmm_payload_floats(k: int, d: int, diagonal: bool) -> int:
@@ -68,3 +75,16 @@ def payload_floats(gmm) -> int:
     """:func:`gmm_payload_floats` of a concrete (unstacked) model."""
     k, d = gmm.means.shape
     return gmm_payload_floats(k, d, gmm.is_diagonal)
+
+
+def stats_payload_floats(k: int, d: int, diagonal: bool) -> int:
+    """One client's EM ``SufficientStats``: s0 (k) + s1 (k·d) + s2 (k·d
+    diag / k·d² full) + loglik + wsum — the DEM/FedEM per-round uplink."""
+    cov = k * d if diagonal else k * d * d
+    return k + k * d + cov + 2
+
+
+def label_payload_floats(k: int, d: int) -> int:
+    """One client's hard-assignment label statistics: counts (k) + sums
+    (k·d) + inertia — the federated k-means per-round uplink."""
+    return k + k * d + 1

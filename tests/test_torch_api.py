@@ -71,3 +71,17 @@ def test_config_validation():
         api.GMMEstimator(3, nonsense=1)
     with pytest.raises(RuntimeError):
         api.GMMEstimator(3, device="cpu").score(np.zeros((2, 3)))
+
+
+def test_every_public_name_is_a_name_of_repro_api():
+    """The port's facades take no name that ``repro.api`` lacks."""
+    assert set(api.__all__) <= set(japi.__all__)
+    for name in api.__all__:
+        assert hasattr(japi, name), name
+    for name in ("DEM", "FedEM", "FedKMeans", "fit_federated",
+                 "KMeansEstimator"):
+        assert name in api.__all__
+    for facade in (api.GMMEstimator(2), api.KMeansEstimator(2),
+                   api.DEM(2), api.FedEM(2), api.FedKMeans(2),
+                   api.FedGenGMM(k_candidates=(2, 3))):
+        assert facade.config.device == "cuda"

@@ -12,8 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.api import FitConfig, fit_federated
 from repro_torch.core import em
+from repro_torch.core.dem import DEMStrategy
 from repro_torch.core.gmm import GMM
+from repro_torch.fed.runtime import SplitClients, run_rounds
+from repro_torch.fed.strategies import FedKMeansState, FedKMeansStrategy
 from repro_torch.kernels import estep_stats, gmm_logpdf, kmeans_assign
 from repro_torch.kernels import ops, ref
 
@@ -219,6 +223,82 @@ class TestKernelLaunch:
         for chunk in (None, 4096):
             assert torch.equal(
                 em.log_prob_chunked(g, x, chunk, backend="fused"), full)
+
+    def test_dem_round_matches_reference(self):
+        """One DEM round at the main path's width (20 padded clients of
+        7,320 rows, d = 24, K = 30): on the fused backend one
+        ``estep_stats`` launch for all clients against the broadcast model,
+        within 2e-4 of the reference round from the same model."""
+        dev = torch.device("cuda")
+        rng = np.random.default_rng(14)
+        c, n, d, k = 20, 7320, 24, 30
+        mu = rng.normal(0, 3, (k, d))
+        var = rng.uniform(0.2, 1.0, (k, d))
+        lab = rng.integers(0, k, (c, n))
+        x = mu[lab] + rng.normal(0, 1, (c, n, d)) * np.sqrt(var[lab])
+        sizes = rng.integers(900, n + 1, c)
+        mask = (np.arange(n)[None] < sizes[:, None]).astype(np.float32)
+        clients = SplitClients(t((x * mask[..., None]).astype(np.float32))
+                               .to(dev), t(mask).to(dev), sizes)
+        g0 = GMM(torch.full((k,), 1.0 / k, device=dev),
+                 t((mu + rng.normal(0, 0.3, mu.shape)).astype(np.float32))
+                 .to(dev), torch.ones(k, d, device=dev))
+        res, launches = {}, {}
+        for backend in ("fused", "reference"):
+            strat = DEMStrategy(k=k, init="separated", backend=backend)
+            before = estep_stats.launches
+            res[backend] = run_rounds(strat, clients, device=dev,
+                                      state0=strat.state_from_gmm(g0),
+                                      max_rounds=1)
+            launches[backend] = estep_stats.launches - before
+        assert launches == {"fused": 1, "reference": 0}
+        got, exp = res["fused"], res["reference"]
+        assert got.n_rounds == exp.n_rounds == 1
+        assert abs(float(got.log_likelihood)
+                   - float(exp.log_likelihood)) <= 2e-4
+        for a, b in zip((got.global_gmm.weights, got.global_gmm.means,
+                         got.global_gmm.covs),
+                        (exp.global_gmm.weights, exp.global_gmm.means,
+                         exp.global_gmm.covs)):
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                       rtol=2e-4, atol=2e-4)
+
+    def test_fedkmeans_strategy_launches_the_sweep(self):
+        """A ``FedKMeansStrategy`` built directly, with its default
+        backend, runs each round and the rescore as one
+        ``kmeans_sweep_stats`` launch, and from injected centers ends
+        within 2e-4 of the reference strategy, which launches none. Through
+        ``fit_federated`` it launches the sweep too."""
+        dev = torch.device("cuda")
+        rng = np.random.default_rng(3)
+        c, n, d, k = 4, 600, 6, 5
+        mu = rng.normal(0, 4, (k, d))
+        x = (mu[rng.integers(0, k, (c, n))]
+             + rng.normal(0, 0.5, (c, n, d))).astype(np.float32)
+        sizes = np.array([600, 450, 300, 520])
+        mask = (np.arange(n)[None] < sizes[:, None]).astype(np.float32)
+        clients = SplitClients(t(x * mask[..., None]).to(dev),
+                               t(mask).to(dev), sizes)
+        c0 = t((mu + rng.normal(0, 0.5, mu.shape)).astype(np.float32)).to(dev)
+        inf = torch.tensor(float("inf"), device=dev)
+        res, launches = {}, {}
+        for name, strat in (("auto", FedKMeansStrategy(k=k)),
+                            ("reference", FedKMeansStrategy(
+                                k=k, assign_backend="reference"))):
+            before = kmeans_assign.sweep_launches
+            res[name] = run_rounds(strat, clients, device=dev, max_rounds=50,
+                                   state0=FedKMeansState(c0, inf, inf, 1e-4))
+            launches[name] = kmeans_assign.sweep_launches - before
+        assert launches == {"auto": res["auto"].n_rounds + 1,
+                            "reference": 0}
+        assert res["auto"].n_rounds == res["reference"].n_rounds
+        np.testing.assert_allclose(res["auto"].centers.cpu().numpy(),
+                                   res["reference"].centers.cpu().numpy(),
+                                   rtol=2e-4, atol=2e-4)
+        before = kmeans_assign.sweep_launches
+        fit_federated(clients, strategy=FedKMeansStrategy(k=k), seed=0,
+                      config=FitConfig(device="cuda"), max_rounds=50)
+        assert kmeans_assign.sweep_launches > before
 
     def test_wrapper_rejects_bad_operands(self):
         with pytest.raises(ValueError):  # K beyond the E-step's 512
