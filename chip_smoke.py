@@ -43,11 +43,32 @@ Phases (each failure makes the exit code non-zero):
      the rounds and uplink of FedGenGMM against each DEM init (Table 4);
      fused DEM held to reference DEM within 1e-4 from one injected init;
      per-client and server-side BIC on planted clients with ragged K_c,
-     on the card against the same run on the CPU.
+     on the card against the same run on the CPU;
+  8. serving: phase 3's global model behind ``repro_torch.serve``'s
+     ``ScoringEngine`` (each micro-batch one CUDA-graph replay of the
+     log-density kernel) for a stream of 400 anomaly requests of
+     ``benchmarks/serve_bench.py``'s sizes drawn from phase 3's test and OOD
+     rows, 4 arrivals a step, at 8 x 512 and at 8 x 1024 rows, the second
+     with phase 3's central GMM published mid-stream through a
+     ``ModelStore`` the engine follows; every result the bits of
+     ``api.log_prob`` under the version that scored it and within phase
+     2's tolerance of the plain version, no request dropped, one version
+     boundary, one replay and no launch, capture or packing from the host
+     a steady step, replay equal to the eager step, other pool geometries
+     equal; a ``responsibilities`` run through ``gmm_logpdf`` held to the
+     plain version and to ``GMM.responsibilities`` at fixed limits; under
+     ``torch.profiler``, one log-density kernel on the device a step; device
+     ops a step, a step's replay time, the wall of a replayed and an eager
+     micro-batch, latency, throughput, swap pause and capture time.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
-``{"ok": true, "device": {...}}``. Without CUDA, or without the repository
-beside it, the script exits non-zero and prints no result.
+``{"ok": true, "device": {...}}``. A kernel's ``launches`` there is phase
+3's main-path count; ``launches_by_path`` adds phase 8's serving runs (the
+wrapper's launches: a warm-up and a capture at each install, since a replay
+does not call it), and ``serving_device_launches`` the kernel's launches
+that the profiler saw on the device in phase 8's traced runs (one a
+micro-batch). Without CUDA, or without the repository beside it, the
+script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -91,6 +112,7 @@ KERNELS = {
 PATH_KERNELS = ("gmm_log_prob", "estep_stats", "kmeans_sweep_stats")
 OFF_PATH_KERNELS = ("gmm_logpdf", "kmeans_assign")
 REQUEST_ROWS = 128  # rows of one anomaly-scoring request
+SERVE_SLABS = (8 * 512, 8 * 1024)  # rows of phase 8's micro-batches
 # The main path's Lloyd sweep shapes (problems, rows): the local pilots (20
 # clients x 4 restarts), the local fits, the refit's pilots on its
 # SEED_ROWS subsample, the refit's full-data polish.
@@ -380,8 +402,12 @@ def phase_kernels(dev, report):
     # sweep and the refit's
     full_errs = logpdf_case(N_TRAIN, D, K, 1)
     request_errs = logpdf_case(REQUEST_ROWS, D, K, 14)
-    errs["gmm_logpdf"] = max(full_errs[0], request_errs[0])
-    errs["gmm_log_prob"] = max(full_errs[1], request_errs[1])
+    # phase 8's serving slabs, 8 x 512 and 8 x 1024 rows
+    slab_errs = [logpdf_case(n, D, K, 16 + i)
+                 for i, n in enumerate(SERVE_SLABS)]
+    cases = [full_errs, request_errs] + slab_errs
+    errs["gmm_logpdf"] = max(e[0] for e in cases)
+    errs["gmm_log_prob"] = max(e[1] for e in cases)
     rows_stable(15)
     errs["estep_stats"] = max(estep_case(CLIENTS, N_PAD, D, K, 2),
                               estep_case(1, N_SYNTH, D, K, 3),
@@ -493,7 +519,8 @@ def phase_main_path(dev, report):
         f"({t_central:.3f} s, {int(central.result_.n_iter)} EM iterations)")
     report.update(launches=launches, fit_s=t_fit, total_s=t_total, ll=ll,
                   auc=auc, ll_central=ll_central, split=split, ds=ds,
-                  gmm=fed.global_gmm, requests=rows)
+                  gmm=fed.global_gmm, central_gmm=central.gmm_,
+                  requests=rows)
 
 
 # ----------------------------------------------------------------------
@@ -1177,6 +1204,395 @@ def phase_paper_comparison(dev, report):
     log(f"phase 7: took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ----------------------------------------------------------------------
+# Phase 8: serving
+# ----------------------------------------------------------------------
+
+# benchmarks/serve_bench.py's stream: request sizes drawn uniformly, the
+# number of requests, arrivals a micro-batch
+SERVE_SIZES = (16, 64, 200, 512, 3000)
+SERVE_REQUESTS, SERVE_ARRIVALS, RESP_REQUESTS = 400, 4, 40
+SERVE_KERNELS = ("gmm_log_prob", "gmm_logpdf")
+# Limits of the responsibilities on the card (max abs), against softmax of
+# the plain per-component version on the same packed operands, and against
+# GMM.responsibilities, which sums the same f32 terms in another arrangement.
+# Log densities are of order 1e3 at MNIST width, so the f32 sums differ by
+# ~1e-4: on an H100 the two read 1.185e-4 and 1.297e-4.
+RESP_ATOL_PLAIN, RESP_ATOL_GMM = 5e-4, 5e-4
+
+
+def serve_stream(rows, seed: int, n: int):
+    """``n`` requests of sizes drawn uniformly from SERVE_SIZES, each of
+    rows drawn with replacement from ``rows``."""
+    import numpy as np
+    from repro_torch.serve import ScoreRequest
+    rng = np.random.default_rng(seed)
+    picks = rng.choice(len(SERVE_SIZES), size=n)
+    return [ScoreRequest(i, rows[rng.integers(0, len(rows), SERVE_SIZES[p])])
+            for i, p in enumerate(picks)]
+
+
+class PackCounter:
+    """While entered, counts the calls of ``ops.pack_params`` (the engine
+    and ``api.log_prob`` both reach it through the module)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.calls, self._orig = 0, ops.pack_params
+
+        def counted(*args):
+            self.calls += 1
+            return self._orig(*args)
+        ops.pack_params = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.pack_params = self._orig
+
+
+def drive_serving(eng, reqs, kernel, publish_at=None, publish=None):
+    """Trickle ``reqs`` into ``eng``, SERVE_ARRIVALS a micro-batch (calling
+    ``publish()`` once ``publish_at`` requests are in), stepping until every
+    request retires. Returns (results by rid, submit-to-retire seconds by
+    rid, wall seconds, one (wrapper launches of ``kernel``, replays,
+    captures, packings, installs) tuple a step); every step here has
+    requests in its slots."""
+    from repro_torch.serve import engine as serve_engine
+    results, lat, steps, submitted_at = {}, {}, [], {}
+
+    def state(packs):
+        return (kernel_counts()[kernel], eng.replays, serve_engine.captures,
+                packs.calls, eng.swaps)
+
+    with PackCounter() as packs:
+        t0 = time.perf_counter()
+        submitted = 0
+        while submitted < len(reqs) or eng.pending_requests:
+            for req in reqs[submitted:submitted + SERVE_ARRIVALS]:
+                eng.submit(req)
+                submitted_at[req.rid] = time.perf_counter()
+            submitted = min(submitted + SERVE_ARRIVALS, len(reqs))
+            if publish_at is not None and submitted >= publish_at:
+                publish()
+                publish_at = None
+            before = state(packs)
+            done = eng.step()
+            now = time.perf_counter()
+            steps.append(tuple(a - b for a, b in zip(state(packs), before)))
+            for res in done:
+                results[res.rid] = res
+                lat[res.rid] = now - submitted_at[res.rid]
+        wall = time.perf_counter() - t0
+    return results, lat, wall, steps
+
+
+def check_steps(steps, what):
+    """Every step without an install replayed the graph once and launched,
+    captured and packed nothing from the host; an install step also packed
+    and captured once, the wrapper called twice (the warm-up and the
+    capture)."""
+    steady = [s for s in steps if s[4] == 0]
+    installs = [s for s in steps if s[4] > 0]
+    check(all(s[:4] == (0, 1, 0, 0) for s in steady),
+          f"{what}: a steady step did not replay once without launching, "
+          f"capturing or packing: {sorted(set(s[:4] for s in steady))}")
+    check(all(s[:4] == (2, 1, 1, 1) for s in installs),
+          f"{what}: an install step did not warm up, capture and pack once: "
+          f"{installs}")
+    return len(steady), installs
+
+
+def profiled(fn):
+    """Run ``fn`` under ``torch.profiler`` -> (its result, {device event
+    name: (count, us)}). A profiler that fails or sees no device event
+    fails the phase: the serving path's device launches are read here."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            cnt, us = by_name.get(ev.name, (0, 0.0))
+            by_name[ev.name] = (cnt + 1, us + ev.time_range.elapsed_us())
+    check(by_name, "the profiler saw no device events")
+    return out, by_name
+
+
+def device_launches(by_name) -> int:
+    """Launches of the log-density kernel (either entry) in a trace."""
+    return sum(cnt for name, (cnt, _) in by_name.items()
+               if "logpdf_kernel" in name)
+
+
+def slab_walls(eng, reps: int = 200):
+    """Host wall (ms) of one micro-batch's device round trip (copy in,
+    score, copy out, sync) through ``eng``'s graph replay and through the
+    same step run eagerly, timed in turns (replay, eager, replay, eager)
+    over ``reps`` calls each -> (replay ms, eager ms), two values each."""
+    graph = eng._graph
+    walls = {"replay": [], "eager": []}
+    for _ in range(2):
+        for route in ("replay", "eager"):
+            eng._graph = graph if route == "replay" else None
+            eng._run_slab()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                eng._run_slab()
+            walls[route].append((time.perf_counter() - t0) / reps * 1e3)
+    eng._graph = graph
+    return walls["replay"], walls["eager"]
+
+
+def replay_ms(graph, reps: int = 50) -> float:
+    """Mean device time of one replay of ``graph`` between CUDA events."""
+    import torch
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def serve_stats(results, lat, wall):
+    import numpy as np
+    ms = np.array(list(lat.values())) * 1e3
+    admit = np.array([r.latency_s for r in results.values()]) * 1e3
+    rows = sum(r.num_rows for r in results.values())
+    return (f"submit-to-retire p50 {np.percentile(ms, 50):.3f} ms, p99 "
+            f"{np.percentile(ms, 99):.3f} ms (admission-to-retire, the "
+            f"engine's latency_s: p50 {np.percentile(admit, 50):.3f} ms, p99 "
+            f"{np.percentile(admit, 99):.3f} ms); {len(results) / wall:.1f} "
+            f"requests/s, {rows / wall:.1f} rows/s ({len(results)} requests, "
+            f"{rows} rows in {wall:.4f} s)")
+
+
+def serving_trace(dev, gmm, rows):
+    """The device work of steady micro-batches: a fresh 8 x 512 engine
+    serves 60 requests of the stream under ``torch.profiler``; its device
+    events are counted by name per step, and the log-density kernel must
+    run once a step. Returns its device launches."""
+    from repro_torch.serve import ScoreConfig, ScoringEngine
+    eng = ScoringEngine(gmm, ScoreConfig(mode="anomaly", backend="fused",
+                                         device=dev.type))
+    reqs = serve_stream(rows, 81, 60)
+    (_, _, _, steps), by_name = profiled(
+        lambda: drive_serving(eng, reqs, "gmm_log_prob"))
+    check_steps(steps, "profiled serving run")
+    m = len(steps)
+    check(device_launches(by_name) == m,
+          f"profiled serving run: {device_launches(by_name)} log-density "
+          f"kernels on the device in {m} micro-batches")
+    log(f"phase 8: {m} steady micro-batches at 8 x 512 under the profiler: "
+        f"{sum(c for c, _ in by_name.values()) / m:.2f} device operations "
+        f"and {sum(us for _, us in by_name.values()) / m:.3f} us of device "
+        f"time a step")
+    for name, (cnt, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
+        log(f"phase 8:   {cnt / m:5.2f} a step, {us / m:8.3f} us a step  "
+            f"{name[:100]}")
+    return device_launches(by_name)
+
+
+def phase_serving(dev, report):
+    """Phase 3's global model served to the stream at 8 x 512, then at
+    8 x 1024 with phase 3's central GMM published mid-stream into a
+    ``ModelStore`` the engine follows; the geometry, replay and
+    responsibilities checks; the step's device work and times."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.api import FitConfig, log_prob
+    from repro_torch.kernels import gmm_logpdf, ops, ref
+    from repro_torch.serve import (ModelStore, ScoreConfig, ScoreRequest,
+                                   ScoringEngine)
+
+    t_phase = time.perf_counter()
+    rows = np.concatenate([report["ds"].x_test_in, report["ds"].x_test_ood])
+    gmm, central = report["gmm"], report["central_gmm"]
+    reqs = serve_stream(rows, 8, SERVE_REQUESTS)
+    fused = FitConfig(backend="fused", device=dev.type)
+    served = {name: 0 for name in KERNELS}
+
+    def config(slots, rows_per_slot, mode="anomaly"):
+        return ScoreConfig(mode=mode, slots=slots, rows_per_slot=rows_per_slot,
+                           backend="fused", device=dev.type)
+
+    def read_counts():
+        for name, n in kernel_counts().items():
+            served[name] += n
+
+    def packed(g):
+        return ops.pack_params(g.means, g.covs, torch.log(g.weights))
+
+    def bits(results, gmms, what):
+        """Each result has the bits of -api.log_prob under its version, and
+        lies within phase 2's tolerance of the plain version."""
+        operands = {v: packed(g) for v, g in gmms.items()}
+        err = 0.0
+        for rid, res in results.items():
+            g = gmms[res.model_version]
+            want = -log_prob(g, reqs[rid].rows, fused).cpu().numpy()
+            check(np.array_equal(res.scores, want),
+                  f"{what}: request {rid} differs from -api.log_prob")
+            x = torch.as_tensor(reqs[rid].rows, device=dev)
+            plain = -ref.gmm_log_prob_packed(x, *operands[res.model_version])
+            err = max(err, close(torch.as_tensor(res.scores), plain.cpu(),
+                                 2e-4, 2e-4, f"{what}: request {rid} vs "
+                                 f"the plain version"))
+        return err
+
+    total_rows = sum(r.num_rows for r in reqs)
+    log(f"phase 8: stream of {len(reqs)} anomaly requests, {total_rows} "
+        f"rows (sizes {SERVE_SIZES}, {SERVE_ARRIVALS} arrivals a step), "
+        f"d = {D}, K = {K}")
+
+    # each geometry serves phase 3's global model alone
+    step_ms, res512 = {}, None
+    for slots, rps in ((8, 512), (8, 1024)):
+        reset_counts()
+        eng = ScoringEngine(gmm, config(slots, rps), version=1)
+        check(eng.graph is not None, "the fused engine on the card captured "
+              "no graph")
+        res, lat, wall, steps = drive_serving(eng, reqs, "gmm_log_prob")
+        read_counts()
+        check_steps(steps, f"{slots} x {rps}")
+        check(sorted(res) == list(range(len(reqs))),
+              f"{slots} x {rps} dropped a request")
+        err = bits(res, {1: gmm}, f"{slots} x {rps}")
+        log(f"phase 8: {slots} x {rps}: {len(steps)} micro-batches, each one "
+            f"replay and no launch, capture or packing from the host; "
+            f"capture at install {eng.capture_s[0] * 1e3:.3f} ms; max abs "
+            f"err against the plain version {err:.3e}; "
+            f"{serve_stats(res, lat, wall)}")
+        step_ms[slots * rps] = replay_ms(eng.graph)
+        replay_wall, eager_wall = slab_walls(eng)
+        log(f"phase 8: {slots} x {rps}: a micro-batch's device round trip "
+            f"(copy in, score, copy out, sync), host wall by replay "
+            f"{replay_wall[0]:.5f} / {replay_wall[1]:.5f} ms, run eagerly "
+            f"{eager_wall[0]:.5f} / {eager_wall[1]:.5f} ms (in turns)")
+        if rps == 512:
+            res512, eng512 = res, eng
+    # one full step, replayed and eager
+    pick = np.random.default_rng(9).integers(0, len(rows), (8, 512))
+    for i in range(8):
+        eng512.submit(ScoreRequest(10_000 + i, rows[pick[i]]))
+    eng512.step()
+    torch.cuda.synchronize()
+    check(torch.equal(eng512._out, eng512._score()), "the replayed step "
+          "differs from the same step run eagerly")
+
+    # other pool geometries give the same bits
+    for slots, rps in ((3, 64), (1, 256)):
+        got = {r.rid: r.scores for r in ScoringEngine(
+            gmm, config(slots, rps)).run(reqs[:40])}
+        check(all(np.array_equal(got[i], res512[i].scores)
+                  for i in range(40)),
+              f"a {slots} x {rps} pool gives other bits than 8 x 512")
+
+    # 8 x 1024 following a store, a second model published mid-stream
+    with tempfile.TemporaryDirectory() as root:
+        publisher = ModelStore(root, device=dev.type)
+        publisher.publish(gmm, {"model": "FedGenGMM"})
+        reset_counts()
+        eng2 = ScoringEngine.from_store(ModelStore(root, device=dev.type),
+                                        config(8, 1024))
+        res1024, lat2, wall2, steps2 = drive_serving(
+            eng2, reqs, "gmm_log_prob", publish_at=len(reqs) // 2,
+            publish=lambda: publisher.publish(central, {"model": "central"}))
+        read_counts()
+    n_steady2, installs = check_steps(steps2, "8 x 1024 with a swap")
+    check(sorted(res1024) == list(range(len(reqs))), "8 x 1024 dropped a "
+          "request across the swap")
+    versions = [res1024[rid].model_version for rid in range(len(reqs))]
+    check(versions == sorted(versions) and set(versions) == {1, 2},
+          f"the version does not flip at one admission boundary: "
+          f"{sorted(set(versions))}")
+    check(eng2.swaps == 1 and len(eng2.swap_pauses) == 1 and len(installs)
+          == 1, f"8 x 1024: {eng2.swaps} swaps, {len(installs)} install "
+          f"steps")
+    err = bits(res1024, {1: gmm, 2: central}, "8 x 1024 with a swap")
+    boundary = versions.index(2)
+    log(f"phase 8: 8 x 1024 following a store, with a swap: {len(steps2)} "
+        f"micro-batches ({n_steady2} steady: one replay, no launch, capture "
+        f"or packing; the install step {installs[0]} wrapper launches, "
+        f"replays, captures, packings, installs); max abs err against the "
+        f"plain version {err:.3e}; version 1 for requests 0..{boundary - 1}, 2 "
+        f"from {boundary}; swap pause {eng2.swap_pauses[0] * 1e3:.3f} ms; "
+        f"captures {[round(c * 1e3, 3) for c in eng2.capture_s]} ms; "
+        f"{serve_stats(res1024, lat2, wall2)}")
+
+    # responsibilities through the per-component kernel, under the profiler
+    rreqs = reqs[:RESP_REQUESTS]
+    reset_counts()
+    eng3 = ScoringEngine(gmm, config(8, 512, "responsibilities"))
+    (res_r, _, _, steps3), trace3 = profiled(
+        lambda: drive_serving(eng3, rreqs, "gmm_logpdf"))
+    read_counts()
+    check_steps(steps3, "responsibilities")
+    served_device = {"gmm_logpdf": device_launches(trace3)}
+    check(served_device["gmm_logpdf"] == len(steps3),
+          f"responsibilities: {served_device['gmm_logpdf']} gmm_logpdf "
+          f"kernels on the device in {len(steps3)} micro-batches")
+    # held to softmax of the plain version on the engine's packed operands,
+    # and to GMM.responsibilities, each at a fixed limit
+    operands = packed(gmm)
+    err_plain = err_gmm = 0.0
+    for rid, res in res_r.items():
+        x = torch.as_tensor(rreqs[rid].rows, device=dev)
+        plain = torch.softmax(ref.gmm_logpdf_packed(x, *operands), dim=1)
+        want = gmm.responsibilities(x).cpu().numpy()
+        check(res.scores.shape == want.shape, "responsibilities shape")
+        check(np.abs(res.scores.sum(1) - 1.0).max() <= 1e-5,
+              "responsibilities rows do not sum to 1 within 1e-5")
+        err_plain = max(err_plain, float(np.abs(
+            res.scores - plain.cpu().numpy()).max()))
+        err_gmm = max(err_gmm, float(np.abs(res.scores - want).max()))
+    log(f"phase 8: responsibilities, {len(rreqs)} requests at 8 x 512: "
+        f"{len(steps3)} micro-batches, {served_device['gmm_logpdf']} "
+        f"gmm_logpdf kernels on the device; max abs err against softmax of "
+        f"the plain version {err_plain:.3e} (limit {RESP_ATOL_PLAIN}), "
+        f"against GMM.responsibilities {err_gmm:.3e} (limit "
+        f"{RESP_ATOL_GMM}); rows sum to 1 within 1e-5")
+    check(len(res_r) == len(rreqs) and err_plain <= RESP_ATOL_PLAIN
+          and err_gmm <= RESP_ATOL_GMM,
+          f"responsibilities: {err_plain} from the plain version (limit "
+          f"{RESP_ATOL_PLAIN}), {err_gmm} from GMM.responsibilities (limit "
+          f"{RESP_ATOL_GMM})")
+
+    # the step's device work and times
+    served_device["gmm_log_prob"] = serving_trace(dev, gmm, rows)
+    a, b, c = ops.pack_params(gmm.means, gmm.covs, torch.log(gmm.weights))
+    for n, ms in step_ms.items():
+        x = torch.as_tensor(
+            rows[np.random.default_rng(n).integers(0, len(rows), n)],
+            device=dev)
+        kern = [graph_ms(lambda: gmm_logpdf.gmm_log_prob(x, a, b, c))
+                for _ in range(2)]
+        b_ms, b_by = bound(n * (D + 1) * 4, 4 * n * D * K)
+        log(f"phase 8: a {n}-row step by graph replay {ms:.5f} ms; the "
+            f"gmm_log_prob kernel alone at ({n}, {D}, {K}) {kern[0]:.5f} / "
+            f"{kern[1]:.5f} ms, bound {b_ms:.5f} ms by {b_by}")
+    for name in SERVE_KERNELS:
+        check(served[name] > 0, f"kernel {name} was not launched on the "
+              f"serving path")
+    for entry in report["kernels"]:
+        entry.update(
+            launches_by_path={"fedgengmm": entry["launches"],
+                              "serving": served[entry["name"]]},
+            serving_device_launches=served_device.get(entry["name"], 0))
+    log(f"phase 8: wrapper launches on the serving runs {served}; on the "
+        f"device in the traced runs {served_device}; took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: the repository (src/repro_torch) is not beside "
@@ -1221,7 +1637,8 @@ def main() -> int:
     phases = [("kernels", phase_kernels), ("main path", phase_main_path),
               ("em agreement", phase_em_agreement), ("times", phase_times),
               ("trace", phase_trace), ("request trace", phase_request_trace),
-              ("paper comparison", phase_paper_comparison)]
+              ("paper comparison", phase_paper_comparison),
+              ("serving", phase_serving)]
     for name, fn in phases:
         if failures:
             log(f"skipping phase {name!r} after a failure")

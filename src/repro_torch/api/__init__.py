@@ -6,6 +6,7 @@
     bic = FedGenGMM(k_candidates=(10, 20, 30), k_global=30).run(split)
     dem = DEM(30, init="separated").run(split)
     est = GMMEstimator(k_candidates=(2, 3, 4), device="cpu").fit(x)
+    scorer = Scorer.from_checkpoint("runs/models", "anomaly")  # serving
 
 Every name here is also a name of ``repro.api``.
 """
@@ -13,7 +14,8 @@ from repro_torch.core.config import FitConfig
 from repro_torch.api.estimators import (DEM, FedEM, FedGenGMM, FedKMeans,
                                         GMMEstimator, KMeansEstimator, bic,
                                         fit_federated, log_prob, score)
+from repro_torch.api.serving import Scorer
 
 __all__ = ["FitConfig", "GMMEstimator", "KMeansEstimator", "FedGenGMM",
            "DEM", "FedEM", "FedKMeans", "fit_federated", "score",
-           "log_prob", "bic"]
+           "log_prob", "bic", "Scorer"]

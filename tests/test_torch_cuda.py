@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.api import FitConfig, fit_federated
+from repro_torch.api import FitConfig, fit_federated, log_prob
 from repro_torch.core import em
 from repro_torch.core.dem import DEMStrategy
 from repro_torch.core.gmm import GMM
@@ -20,6 +20,9 @@ from repro_torch.fed.runtime import SplitClients, run_rounds
 from repro_torch.fed.strategies import FedKMeansState, FedKMeansStrategy
 from repro_torch.kernels import estep_stats, gmm_logpdf, kmeans_assign
 from repro_torch.kernels import ops, ref
+from repro_torch.serve import (ModelStore, ScoreConfig, ScoreRequest,
+                               ScoringEngine)
+from repro_torch.serve import engine as serve_engine
 
 SHAPES = [  # (N, d, K), as tests/test_kernels.py
     (64, 4, 2),
@@ -315,3 +318,110 @@ class TestKernelLaunch:
                                   torch.zeros(3, device="cuda"))
         with pytest.raises(ValueError):
             gmm_logpdf.gmm_log_prob(x, a, a, torch.zeros(2, device="cuda"))
+
+
+def serving_model(rng, k, d):
+    """A diagonal model of k components in d dimensions, as numpy arrays."""
+    return (rng.dirichlet(np.ones(k)).astype(np.float32),
+            rng.normal(0, 2, (k, d)).astype(np.float32),
+            rng.uniform(0.2, 2.0, (k, d)).astype(np.float32))
+
+
+def device_logpdf_launches(fn) -> int:
+    """Launches of the log-density kernel (either entry) that
+    ``torch.profiler`` sees on the device while ``fn`` runs."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and "logpdf_kernel" in ev.name)
+
+
+@pytest.mark.cuda
+class TestServingOnCard:
+    """The serving engine on the card: one CUDA graph captured per model
+    install, one replay per micro-batch that runs the kernel once on the
+    device and calls no launch wrapper, replayed results equal to the eager
+    step and to ``api.log_prob`` bit for bit."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card: the engine captures CUDA graphs "
+                        "of the kernels, which have no CPU mode")
+
+    def test_one_capture_per_install_and_one_replay_per_step(self):
+        rng = np.random.default_rng(40)
+        g_a = GMM(*(t(a).cuda() for a in serving_model(rng, 30, 24)))
+        g_b = GMM(*(t(a).cuda() for a in serving_model(rng, 30, 24)))
+        reqs = [ScoreRequest(i, rng.normal(0, 2, (n, 24)))
+                for i, n in enumerate((16, 3000, 200, 512, 64, 1, 0, 700))]
+        captures = serve_engine.captures
+        eng = ScoringEngine(g_a, ScoreConfig(mode="anomaly", slots=3,
+                                             rows_per_slot=256), version=1)
+        assert serve_engine.captures == captures + 1
+        assert eng.graph is not None and eng.backend == "fused"
+        for req in reqs:
+            eng.submit(req)
+        results, steps = [], 0
+
+        def serve():
+            nonlocal results, steps
+            while eng.pending_requests:
+                before = (gmm_logpdf.log_prob_launches, eng.replays)
+                results += eng.step()
+                steps += 1
+                assert (gmm_logpdf.log_prob_launches, eng.replays) == (
+                    before[0], before[1] + 1)
+        assert device_logpdf_launches(serve) == steps
+        assert serve_engine.captures == captures + 1
+        assert torch.equal(eng._out, eng._score())  # replay == eager
+        cfg = FitConfig(backend="fused")
+        for res in results:
+            rows = reqs[res.rid].rows
+            if len(rows):
+                want = -log_prob(g_a, rows, cfg).cpu().numpy()
+                np.testing.assert_array_equal(res.scores, want)
+        eng.install(g_b, 2)
+        assert serve_engine.captures == captures + 2 and eng.version == 2
+
+    def test_responsibilities_launch_gmm_logpdf(self):
+        rng = np.random.default_rng(41)
+        w, mu, var = serving_model(rng, 30, 24)
+        g = GMM(t(w).cuda(), t(mu).cuda(), t(var).cuda())
+        eng = ScoringEngine(g, ScoreConfig(mode="responsibilities", slots=2,
+                                           rows_per_slot=128))
+        reqs = [ScoreRequest(i, rng.normal(0, 2, (n, 24)))
+                for i, n in enumerate((300, 5, 0))]
+        for req in reqs:
+            eng.submit(req)
+        results, steps = [], 0
+
+        def serve():
+            nonlocal results, steps
+            while eng.pending_requests:
+                before = (gmm_logpdf.launches, eng.replays)
+                results += eng.step()
+                steps += 1
+                assert (gmm_logpdf.launches, eng.replays) == (
+                    before[0], before[1] + 1)
+        assert device_logpdf_launches(serve) == steps
+        for res in results:
+            rows = reqs[res.rid].rows
+            assert res.scores.shape == (len(rows), 30)
+            if len(rows):
+                want = g.responsibilities(t(rows.astype(np.float32)).cuda())
+                np.testing.assert_allclose(res.scores, want.cpu().numpy(),
+                                           atol=1e-5)
+                np.testing.assert_allclose(res.scores.sum(1), 1.0,
+                                           atol=1e-5)
+
+    def test_store_restores_onto_the_card(self, tmp_path):
+        rng = np.random.default_rng(42)
+        w, mu, var = serving_model(rng, 4, 6)
+        ModelStore(tmp_path).publish(GMM(t(w), t(mu), t(var)))
+        published = ModelStore(tmp_path).latest()
+        assert published.gmm.means.device.type == "cuda"
+        np.testing.assert_array_equal(published.gmm.covs.cpu().numpy(), var)
