@@ -10,7 +10,10 @@ Phases (each failure makes the exit code non-zero):
      ``nvcc`` each, all started together, with each kernel's registers and
      shared memory;
   2. every kernel against its plain PyTorch version on the card, at the
-     kernel test shapes and at the main path's shapes, with the tolerances of
+     kernel test shapes, at the main path's shapes and at phases 8's and
+     9's (serving slabs; out-of-core blocks as a batch of one under a 0/1
+     mask with a ragged tail, the restarts' pilot sweeps, a 2-D label-pass
+     block through ``ops.kmeans_assign``), with the tolerances of
      ``tests/test_kernels.py``; tie cases; the log-prob, E-step and sweep
      kernels giving the same bits in two launches; a row's log density
      giving the same bits alone, in a 128-row request, in the 60,000-row
@@ -59,13 +62,29 @@ Phases (each failure makes the exit code non-zero):
      plain version and to ``GMM.responsibilities`` at fixed limits; under
      ``torch.profiler``, one log-density kernel on the device a step; device
      ops a step, a step's replay time, the wall of a replayed and an eager
-     micro-batch, latency, throughput, swap pause and capture time.
+     micro-batch, latency, throughput, swap pause and capture time;
+  9. out of core, at phase 3's width: (a) FedGenGMM over phase 3's 20
+     clients as unpadded ``.npy`` files, S replayed from a
+     ``SyntheticGMMSource``, its quality held to phase 3's resident run
+     (avg log-likelihood within 1%, AUC-PR within 0.02) and its global
+     model bit-identical over ``ArraySource``s and over ``ConcatSource``s
+     of uneven shards; (b) a ``GMMEstimator`` over an ``NpyFileSource`` of
+     the 60,000 rows at chunk 8192 from phase 4's init against the
+     resident fit, on both backends (the same iterations, within 1e-4);
+     (c) synthetic streams of 2^22 and 2^20 rows fitted in peak memory
+     within 10% of each other, with their passes, wall and device time;
+     (d) a 384 MiB ``.npy`` file scored and fitted at prefetch depth 0
+     and 2, at chunks 65,536 and 8,192, bit-identical to each other and to
+     an ``ArraySource`` on the card, with the wall a pass, host-to-device
+     GB/s and the idle share of a profiled pass (busy and wall of one run;
+     a profiler that fails or sees no device time fails the phase).
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``. A kernel's ``launches`` there is phase
 3's main-path count; ``launches_by_path`` adds phase 8's serving runs (the
 wrapper's launches: a warm-up and a capture at each install, since a replay
-does not call it), and ``serving_device_launches`` the kernel's launches
+does not call it) and phase 9 (a)'s out-of-core run with its scoring over
+sources, and ``serving_device_launches`` the kernel's launches
 that the profiler saw on the device in phase 8's traced runs (one a
 micro-batch). Without CUDA, or without the repository beside it, the
 script exits non-zero and prints no result.
@@ -118,6 +137,16 @@ SERVE_SLABS = (8 * 512, 8 * 1024)  # rows of phase 8's micro-batches
 # SEED_ROWS subsample, the refit's full-data polish.
 SWEEP_SHAPES = [(CLIENTS * 4, N_PAD), (CLIENTS, N_PAD), (4, 16384),
                 (1, N_SYNTH)]
+# Phase 9's block shapes. A source block is padded to pad_target rows with a
+# 0/1 mask: 65,536 (DEFAULT_SOURCE_CHUNK) in a multi-block stream, 8,192 in
+# (b), a multiple of 64 for a one-block stream (a client of 7,320 rows pads
+# to 7,360; the 60,000 training rows to 60,032). E-step blocks as (rows,
+# valid rows); the 4 restarts' pilot sweeps as (restarts, rows); the score
+# blocks' rows.
+OOC_ESTEP_BLOCKS = [(65536, 65536), (65536, 40000), (8192, 8192),
+                    (8192, 60000 - 7 * 8192), (7360, 7320), (60032, 60000)]
+OOC_SWEEP_SHAPES = [(4, 65536), (4, 7360)]
+OOC_LOGPDF_ROWS = (65536, 60032)
 
 
 class Failed(Exception):
@@ -295,11 +324,14 @@ def phase_kernels(dev, report):
         check(torch.equal(chunked, full) and torch.equal(whole, full),
               "log_prob at chunk 4096 or None differs from the kernel")
 
-    def estep_case(c_, n, d, k, seed):
+    def estep_case(c_, n, d, k, seed, valid=None):
+        """Uniform row weights, or with ``valid`` a source block's 0/1 mask:
+        ``valid`` leading ones, then a zero-weight pad."""
         rng = np.random.default_rng(seed)
         x, mu, var, lw = model_inputs(rng, n, d, k, dev, batch=c_)
-        w = torch.as_tensor(rng.uniform(0, 1, (c_, n)), dtype=torch.float32,
-                            device=dev)
+        w = (rng.uniform(0, 1, (c_, n)) if valid is None
+             else (np.arange(n) < valid)[None].repeat(c_, 0))
+        w = torch.as_tensor(w, dtype=torch.float32, device=dev)
         a, b, c = pack_params(mu, var, lw)
         got = estep_stats.estep_stats(x, w, a, b, c)
         exp = ref.estep_stats_packed(x, w, a, b, c)
@@ -365,13 +397,18 @@ def phase_kernels(dev, report):
                   f"kmeans_sweep_stats inertia at {(bsz, n, d, k)}"))
 
     def assign_case(bsz, n, d, k, seed, centers=None):
+        """``bsz`` None: one 2-D block through ``ops.kmeans_assign``, as
+        the out-of-core label pass calls it."""
         x, mu, _, _ = model_inputs(np.random.default_rng(seed), n, d, k, dev,
-                                   batch=bsz)
+                                   batch=bsz or 1)
         if centers is not None:
             mu = centers
         ct = mu.transpose(-1, -2).contiguous()
         c2 = (mu * mu).sum(-1).contiguous()
-        idx, d2 = kmeans_assign.kmeans_assign(x, ct, c2)
+        if bsz is None:
+            idx, d2 = (t[None] for t in ops.kmeans_assign(x[0], mu[0]))
+        else:
+            idx, d2 = kmeans_assign.kmeans_assign(x, ct, c2)
         eidx, ed2 = ref.kmeans_assign_packed(x, ct, c2)
         torch.cuda.synchronize()
         err = close(d2, ed2, 1e-4, 1e-4, f"kmeans_assign d2 at {(n, d, k)}")
@@ -405,7 +442,11 @@ def phase_kernels(dev, report):
     # phase 8's serving slabs, 8 x 512 and 8 x 1024 rows
     slab_errs = [logpdf_case(n, D, K, 16 + i)
                  for i, n in enumerate(SERVE_SLABS)]
-    cases = [full_errs, request_errs] + slab_errs
+    # phase 9's scoring blocks: a full 65,536-row block and the 60,000
+    # training rows as one block padded to 60,032
+    ooc_errs = [logpdf_case(n, D, K, 40 + i)
+                for i, n in enumerate(OOC_LOGPDF_ROWS)]
+    cases = [full_errs, request_errs] + slab_errs + ooc_errs
     errs["gmm_logpdf"] = max(e[0] for e in cases)
     errs["gmm_log_prob"] = max(e[1] for e in cases)
     rows_stable(15)
@@ -413,12 +454,18 @@ def phase_kernels(dev, report):
                               estep_case(1, N_SYNTH, D, K, 3),
                               # tile edges: 64 rows a tile
                               estep_case(2, 64 * 70, D, K, 12),
-                              estep_case(3, 64 * 70 + 1, D, K, 13))
+                              estep_case(3, 64 * 70 + 1, D, K, 13),
+                              # phase 9's blocks: a batch of one under the
+                              # source's 0/1 mask, full and ragged
+                              *(estep_case(1, n, D, K, 50 + i, valid=v)
+                                for i, (n, v) in enumerate(OOC_ESTEP_BLOCKS)))
     errs["kmeans_assign"] = max(assign_case(CLIENTS, N_PAD, D, K, 4)[0],
-                                assign_case(1, N_SYNTH, D, K, 5)[0])
+                                assign_case(1, N_SYNTH, D, K, 5)[0],
+                                # phase 9's label pass: one 2-D block
+                                assign_case(None, BIG_CHUNK, D, K, 8)[0])
     errs["kmeans_sweep_stats"] = max(
         sweep_case(bsz, n, D, K, 20 + i)
-        for i, (bsz, n) in enumerate(SWEEP_SHAPES))
+        for i, (bsz, n) in enumerate(SWEEP_SHAPES + OOC_SWEEP_SHAPES))
     # ties: every center duplicated, so each row has two nearest centers
     rng = np.random.default_rng(6)
     base = torch.as_tensor(rng.normal(0, 2, (1, 8, D)), dtype=torch.float32,
@@ -545,8 +592,10 @@ def phase_em_agreement(dev, report):
     clients = split_to_clients(report["split"], dev)
     x = torch.as_tensor(report["ds"].x_train, device=dev)
     g_central = init_from_kmeans(2, x, K, assign_backend="reference")
+    report["g_central"] = g_central
     g_local = init_from_kmeans(1, clients.data, K, clients.mask,
                                assign_backend="reference")
+    report["g_local"] = g_local
     cases = (("central fit", x, None, g_central, 0.0, 30, True),
              ("central fit", x, None, g_central, "auto", "auto", True),
              ("20 local fits", clients.data, clients.mask, g_local, "auto",
@@ -1593,6 +1642,425 @@ def phase_serving(dev, report):
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# ----------------------------------------------------------------------
+# Phase 9: out of core
+# ----------------------------------------------------------------------
+
+OOC_CHUNK = 8192          # (b): 60,000 rows in 8 blocks, a ragged tail
+BIG_ROWS = (1 << 22, 1 << 20)   # (c): above SyntheticGMMSource's cache
+BIG_CHUNK = 65536         # DEFAULT_SOURCE_CHUNK
+BIG_ITERS = 20            # (c): EM iterations after the streamed init
+FILE_ROWS = 1 << 22       # (d): 384 MiB of f32 rows at d = 24
+# (d): EM iterations at each chunk (64 and 512 blocks a pass)
+FILE_EM_ITERS = {BIG_CHUNK: 5, OOC_CHUNK: 1}
+
+
+def counting_source(inner):
+    """``inner`` wrapped in a DataSource that counts the blocks it yields
+    (``.blocks``)."""
+    from repro_torch.data.sources import DataSource
+
+    class Counting(DataSource):
+        blocks = 0
+        num_rows = property(lambda self: inner.num_rows)
+        dim = property(lambda self: inner.dim)
+        dtype = property(lambda self: inner.dtype)
+        device = property(lambda self: inner.device)
+
+        def iter_blocks(self, chunk_size):
+            for block in inner.iter_blocks(chunk_size):
+                self.blocks += 1
+                yield block
+
+    return Counting()
+
+
+def drain(source, chunk_size):
+    """One pass over ``source``'s blocks, nothing kept."""
+    for _ in source.iter_blocks(chunk_size):
+        pass
+
+
+def same_bits(a, b) -> bool:
+    """Equal models, bit for bit (GMMs or tensors)."""
+    import torch
+    if hasattr(a, "means"):
+        return all(torch.equal(u, v) for u, v in zip(
+            (a.weights, a.means, a.covs), (b.weights, b.means, b.covs)))
+    return torch.equal(a, b)
+
+
+def profiled_busy(fn):
+    """(device busy ms, wall ms, {kernel name: ms}) of one run of ``fn()``
+    under ``torch.profiler``, tracing the device only (recording every host
+    op of a fit slows it many times over). Busy is the union of the device
+    events' intervals (a copy on its own stream may overlap a kernel), wall
+    the same run's, so the idle share 1 - busy / wall is read from one
+    window. A profiler that fails or records no device time fails the
+    phase."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    spans = []
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            tr = ev.time_range
+            by_name[ev.name] = by_name.get(ev.name, 0.0) \
+                + tr.elapsed_us() / 1e3
+            spans.append((tr.start, tr.end))
+    busy, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > reach:
+            busy += end - max(start, reach)
+            reach = end
+    check(busy > 0, "the profiler recorded no device time")
+    return busy / 1e3, wall, by_name
+
+
+# The entries the out-of-core path launches: the E-step and the Lloyd sweeps
+# block by block, the assignment entry in the init's label pass, the row log
+# density in scoring over sources.
+OOC_KERNELS = ("gmm_log_prob", "estep_stats", "kmeans_assign",
+               "kmeans_sweep_stats")
+OUR_KERNELS = ("estep_kernel", "logpdf_kernel", "sweep_kernel",
+               "reduce_kernel")
+
+
+def ooc_federated(dev, report, workdir):
+    """(a) FedGenGMM over phase 3's 20 clients as unpadded .npy files, the
+    replay set S a SyntheticGMMSource; the same run over ArraySources and
+    over ConcatSources of uneven shards; quality against phase 3."""
+    import numpy as np
+    import torch
+    from repro_torch.api import FedGenGMM, FitConfig, log_prob, score
+    from repro_torch.core.metrics import auc_pr
+    from repro_torch.data.sources import (ArraySource, ConcatSource,
+                                          DataSource, NpyFileSource)
+    from repro_torch.fed.ledger import gmm_payload_floats
+
+    split, ds = report["split"], report["ds"]
+    shards = [np.ascontiguousarray(split.data[c, :int(split.sizes[c])])
+              for c in range(split.data.shape[0])]
+    paths = []
+    for c, rows in enumerate(shards):
+        paths.append(workdir / f"client{c:02d}.npy")
+        np.save(paths[-1], rows)
+    cfg = FitConfig(device=dev.type)
+
+    def run(clients):
+        return FedGenGMM(k_clients=K, k_global=K, h=H,
+                         device=dev.type).run(clients, seed=0)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fed = run([NpyFileSource(p) for p in paths])
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    # scoring over sources: the training rows as the clients' files, the
+    # anomaly rows as one ArraySource
+    ll = float(score(fed.global_gmm,
+                     ConcatSource([NpyFileSource(p) for p in paths]),
+                     config=cfg))
+    rows = report["requests"]
+    scores = -log_prob(fed.global_gmm, ArraySource(rows), cfg).cpu().numpy()
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    labels = np.r_[np.zeros(len(ds.x_test_in)), np.ones(len(ds.x_test_ood))]
+    auc = auc_pr(scores, labels)
+    t0 = time.perf_counter()
+    warm = run([NpyFileSource(p) for p in paths])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    comm = fed.comm
+    up = CLIENTS * (gmm_payload_floats(K, D, True) + 1)
+    iters = [int(r.n_iter) for r in fed.local_results]
+    log(f"phase 9 (a): FedGenGMM over {CLIENTS} NpyFileSources: first run "
+        f"{first:.3f} s, warm run {warm_s:.3f} s; global avg loglik "
+        f"{ll:.6f} (resident, phase 3: {report['ll']:.6f}), AUC-PR "
+        f"{auc:.6f} (resident {report['auc']:.6f}); |S| "
+        f"{fed.synthetic.num_rows} replayed from a "
+        f"{type(fed.synthetic).__name__}; local EM iterations {iters}")
+    log(f"phase 9 (a): comm {comm._asdict()}; launches on the out-of-core "
+        f"path (the first run and its scoring) {launches}")
+    check(isinstance(fed.synthetic, DataSource)
+          and fed.synthetic.num_rows == N_SYNTH, "S is not a replay source")
+    check(comm.rounds == 1 and comm.uplink_floats == up,
+          f"uplink_floats {comm.uplink_floats} != closed form {up}")
+    check(same_bits(fed.global_gmm, warm.global_gmm),
+          "the warm run's global model differs from the first run's")
+    check(np.isfinite(ll) and np.isfinite(scores).all(), "non-finite scores")
+    for name in OOC_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the out-of-core path")
+    for what, clients in (
+            ("ArraySources", [ArraySource(r) for r in shards]),
+            ("ConcatSources of 3 uneven shards", [ConcatSource(
+                [ArraySource(r[:len(r) // 7]),
+                 ArraySource(r[len(r) // 7:len(r) // 2]),
+                 ArraySource(r[len(r) // 2:])]) for r in shards])):
+        other = run(clients)
+        check(same_bits(fed.global_gmm, other.global_gmm),
+              f"FedGenGMM over {what} differs from the .npy run")
+        log(f"phase 9 (a): FedGenGMM over {what}: global model bit-identical "
+            f"to the .npy run")
+    ll_gap = abs(ll - report["ll"]) / abs(report["ll"])
+    auc_gap = abs(auc - report["auc"])
+    log(f"phase 9 (a): against the resident run: avg loglik {ll_gap:.4%} "
+        f"apart (held to 1%), AUC-PR {auc_gap:.6f} apart (held to 0.02)")
+    check(ll_gap <= 0.01 and auc_gap <= 0.02,
+          f"out-of-core FedGenGMM quality: avg loglik {ll_gap:.4%} and "
+          f"AUC-PR {auc_gap:.6f} from the resident run")
+    report["ooc_launches"] = launches
+
+
+def ooc_parity(dev, report, workdir):
+    """(b) GMMEstimator over an NpyFileSource of the 60,000 training rows at
+    chunk 8192 from phase 4's injected init, against the resident
+    fit_gmm_cfg at the same chunk, on both backends; then the 20 clients'
+    files (written by (a)), one block each, against the resident local
+    fits from phase 4's local init."""
+    import numpy as np
+    import torch
+    from repro_torch.api import FitConfig, GMMEstimator
+    from repro_torch.convert import split_to_clients
+    from repro_torch.core.em import fit_gmm_cfg
+    from repro_torch.data.sources import NpyFileSource
+
+    path = workdir / "train.npy"
+    np.save(path, report["ds"].x_train.astype(np.float32))
+    x = torch.as_tensor(report["ds"].x_train, device=dev)
+    g0 = report["g_central"]
+    for backend in ("fused", "reference"):
+        cfg = FitConfig(backend=backend, chunk_size=OOC_CHUNK,
+                        device=dev.type)
+        src = GMMEstimator(K, config=cfg).fit(NpyFileSource(path),
+                                              init_gmm=g0).result_
+        res = fit_gmm_cfg(0, x, K, cfg, init_gmm=g0)
+        diff = abs(float(src.log_likelihood) - float(res.log_likelihood))
+        bits = same_bits(src.gmm, res.gmm)
+        log(f"phase 9 (b): {backend}: source fit {int(src.n_iter)} "
+            f"iterations, avg loglik {float(src.log_likelihood):.6f}; "
+            f"resident {int(res.n_iter)} iterations, "
+            f"{float(res.log_likelihood):.6f}; |diff| {diff:.3e} (held to "
+            f"1e-4); models bit-identical: {bits}")
+        check(int(src.n_iter) == int(res.n_iter) and diff <= 1e-4,
+              f"(b) {backend}: the source fit and the resident fit differ")
+    # single-block clients: each of phase 3's clients is one block of its
+    # .npy file (padded to a multiple of 64), fitted from phase 4's local
+    # init, against the 20 resident local fits as one batch
+    clients = split_to_clients(report["split"], dev)
+    g_local = report["g_local"]
+    cfg = FitConfig(backend="fused", device=dev.type)
+    res = fit_gmm_cfg(0, clients.data, K, cfg, clients.mask,
+                      init_gmm=g_local)
+    worst, bits, iters = 0.0, 0, []
+    for c in range(CLIENTS):
+        src = fit_gmm_cfg(0, NpyFileSource(workdir / f"client{c:02d}.npy"),
+                          K, cfg, init_gmm=g_local[c])
+        check(int(src.n_iter) == int(res.n_iter[c]),
+              f"(b) client {c}: {int(src.n_iter)} source iterations against "
+              f"{int(res.n_iter[c])} resident")
+        iters.append(int(src.n_iter))
+        worst = max(worst, abs(float(src.log_likelihood)
+                               - float(res.log_likelihood[c])))
+        bits += same_bits(src.gmm, res.gmm[c])
+    log(f"phase 9 (b): {CLIENTS} single-block client fits over .npy files "
+        f"against the resident batch, fused, from phase 4's local init: "
+        f"iterations {iters} in both, max |diff| {worst:.3e} (held to "
+        f"1e-4), {bits} of {CLIENTS} models bit-identical")
+    check(worst <= 1e-4, f"(b) single-block client fits differ by {worst}")
+
+
+def ooc_constant_memory(dev, report):
+    """(c) GMMEstimator(30, max_iter=20) over SyntheticGMMSources of 2^22
+    and 2^20 rows drawn from phase 3's global model (regenerated every
+    pass): peak memory, passes, device busy share, the device time of
+    seeding and generation beside the kernels'."""
+    import numpy as np
+    import torch
+    from repro_torch.api import FitConfig, GMMEstimator, score
+    from repro_torch.core.kmeans import kmeans_plusplus_streaming
+    from repro_torch.data.sources import SyntheticGMMSource
+
+    gmm = report["gmm"]
+    cfg = FitConfig(chunk_size=BIG_CHUNK, max_iter=BIG_ITERS,
+                    device=dev.type)
+    peaks = {}
+    for n in BIG_ROWS:
+        src = counting_source(SyntheticGMMSource(gmm, n, seed=n))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        est = GMMEstimator(K, config=cfg).fit(src, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        peaks[n] = peak
+        blocks = src.blocks
+        nb = src.num_blocks(BIG_CHUNK)
+        fit_ll = float(est.result_.log_likelihood)
+        own = float(score(gmm, SyntheticGMMSource(gmm, n, seed=n),
+                          config=cfg))
+        log(f"phase 9 (c): {n} rows ({nb} blocks of {BIG_CHUNK}): fit "
+            f"{wall:.3f} s, {blocks} blocks read ({blocks / nb:.0f} passes), "
+            f"{int(est.result_.n_iter)} EM iterations; peak memory above "
+            f"the start {peak / 2**20:.1f} MiB; fit avg loglik {fit_ll:.6f}, "
+            f"the generating model's own {own:.6f}")
+        check(blocks >= 2 * nb, f"(c) only {blocks} blocks read")
+        check(bool(torch.isfinite(est.gmm_.means).all())
+              and np.isfinite(fit_ll), "(c) non-finite fit")
+        report.setdefault("ooc_big", {})[n] = (wall, blocks // nb, fit_ll)
+    big, small = peaks[BIG_ROWS[0]], peaks[BIG_ROWS[1]]
+    log(f"phase 9 (c): peak memory {big / 2**20:.1f} MiB at {BIG_ROWS[0]} "
+        f"rows against {small / 2**20:.1f} MiB at {BIG_ROWS[1]} (held "
+        f"within 10%)")
+    check(abs(big - small) <= 0.1 * max(big, small),
+          f"(c) peak memory grows with N: {big} against {small} bytes")
+    # the same 2^20 rows materialized on the card and fitted by the
+    # resident path, for the optimum the k-means init and tol reach there
+    n = BIG_ROWS[1]
+    x = SyntheticGMMSource(gmm, n, seed=n).materialize(BIG_CHUNK)
+    res = GMMEstimator(K, config=cfg).fit(x, seed=0).result_
+    log(f"phase 9 (c): the same {n} rows resident on the card: avg loglik "
+        f"{float(res.log_likelihood):.6f} after {int(res.n_iter)} EM "
+        f"iterations (the source fit {report['ooc_big'][n][2]:.6f})")
+    del x, res
+
+    # where the device time goes, at 2^20 rows: busy and wall of one
+    # profiled fit, beside the unprofiled wall above
+    n = BIG_ROWS[1]
+    src = SyntheticGMMSource(gmm, n, seed=n)
+    busy, wall, by_name = profiled_busy(
+        lambda: GMMEstimator(K, config=cfg).fit(src, seed=0))
+    gen, _, _ = profiled_busy(lambda: drain(src, BIG_CHUNK))
+    seed_busy, _, _ = profiled_busy(lambda: kmeans_plusplus_streaming(
+        0, src, K, BIG_CHUNK, dev, n_init=4))
+    ours = sum(ms for name, ms in by_name.items()
+               if any(k in name for k in OUR_KERNELS))
+    passes = report["ooc_big"][n][1]
+    log(f"phase 9 (c): {n} rows, one profiled fit: device busy {busy:.3f} "
+        f"ms of its {wall:.3f} ms wall (idle share {1 - busy / wall:.4f}; "
+        f"unprofiled wall {report['ooc_big'][n][0] * 1e3:.3f} ms); the "
+        f"CUDA kernels {ours:.3f} ms; generating one pass {gen:.3f} ms "
+        f"(x {passes} passes = {gen * passes:.3f} ms); the streamed "
+        f"k-means++ seeding of 4 restarts, {K} passes, {seed_busy:.3f} ms, "
+        f"of which generation {gen * K:.3f} ms")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"phase 9 (c):   {ms:10.3f} ms  {name[:100]}")
+
+
+def ooc_host_file(dev, report, workdir):
+    """(d) an NpyFileSource of 2^22 x 24 f32 rows (384 MiB): one score pass
+    and EM from an injected init (5 iterations at chunk 65,536, 1 at 8,192,
+    where a block's host work on the consumer's side is no longer small
+    beside its copy) at prefetch depth 0 and 2, bit-identical between the
+    depths and to an ArraySource over the same rows on the card; wall a
+    pass, host-to-device GB/s, idle share."""
+    import numpy as np
+    import torch
+    from repro_torch.api import FitConfig, score
+    from repro_torch.core.em import fit_gmm_cfg
+    from repro_torch.data import sources
+    from repro_torch.data.sources import (ArraySource, NpyFileSource,
+                                          SyntheticGMMSource)
+
+    gmm = report["gmm"]
+    path = workdir / "big.npy"
+    out = np.lib.format.open_memmap(path, mode="w+", dtype=np.float32,
+                                    shape=(FILE_ROWS, D))
+    gen = SyntheticGMMSource(gmm, FILE_ROWS, seed=3, cache_rows=0)
+    at = 0
+    for block in gen.iter_blocks(BIG_CHUNK):
+        out[at:at + block.shape[0]] = block.cpu().numpy()
+        at += block.shape[0]
+    out.flush()
+    del out
+    nbytes = FILE_ROWS * D * 4
+    x = torch.as_tensor(np.load(path), device=dev)
+    walls = {}
+    saved = sources.PREFETCH_DEPTH
+    try:
+        for chunk, iters in FILE_EM_ITERS.items():
+            cfg = FitConfig(chunk_size=chunk, device=dev.type)
+            em_cfg = cfg.replace(tol=0.0, max_iter=iters)
+            results = {}
+            for depth in (0, 2, 0, 2):
+                sources.PREFETCH_DEPTH = depth
+                src = NpyFileSource(path)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s = score(gmm, src, config=cfg)
+                torch.cuda.synchronize()
+                t_pass = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                res = fit_gmm_cfg(0, src, K, em_cfg, init_gmm=gmm)
+                torch.cuda.synchronize()
+                t_em = time.perf_counter() - t0
+                busy, wall, _ = profiled_busy(
+                    lambda: score(gmm, src, config=cfg))
+                log(f"phase 9 (d): chunk {chunk}, depth {depth}: score pass "
+                    f"{t_pass:.3f} s ({nbytes / t_pass / 1e9:.2f} GB/s host "
+                    f"to device), {iters} EM iterations {t_em:.3f} s "
+                    f"({t_em / iters:.3f} s a pass); one profiled "
+                    f"score pass: device busy {busy:.3f} ms of its "
+                    f"{wall:.3f} ms wall (idle share {1 - busy / wall:.4f})")
+                walls.setdefault((chunk, depth), []).append(t_pass + t_em)
+                results.setdefault(depth, (s, res))
+            s_res = score(gmm, ArraySource(x), config=cfg)
+            r_res = fit_gmm_cfg(0, ArraySource(x), K, em_cfg, init_gmm=gmm)
+            for depth, (s, res) in results.items():
+                check(torch.equal(s, s_res),
+                      f"(d) the score at chunk {chunk}, depth {depth} "
+                      f"differs")
+                check(same_bits(res.gmm, r_res.gmm)
+                      and torch.equal(res.log_likelihood,
+                                      r_res.log_likelihood),
+                      f"(d) the EM fit at chunk {chunk}, depth {depth} "
+                      f"differs")
+            log(f"phase 9 (d): chunk {chunk}: score {float(s_res):.6f} and "
+                f"the {iters}-iteration fit (avg loglik "
+                f"{float(r_res.log_likelihood):.6f}) bit-identical at depth "
+                f"0, depth 2 and from an ArraySource on the card")
+    finally:
+        sources.PREFETCH_DEPTH = saved
+    for chunk, iters in FILE_EM_ITERS.items():
+        d0, d2 = min(walls[(chunk, 0)]), min(walls[(chunk, 2)])
+        log(f"phase 9 (d): chunk {chunk}: a score pass and {iters} EM "
+            f"iterations, best of two, {d0:.3f} s at depth 0 and "
+            f"{d2:.3f} s at depth 2 (depth 2 / depth 0 = {d2 / d0:.4f})")
+
+
+def phase_out_of_core(dev, report):
+    """Phase 9: the out-of-core path at phase 3's width, (a)-(d)."""
+    import tempfile
+    from pathlib import Path as _Path
+    import torch
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        workdir = _Path(tmp)
+        for part, fn in (("a", ooc_federated), ("b", ooc_parity),
+                         ("c", lambda dev, report, _: ooc_constant_memory(
+                             dev, report)),
+                         ("d", ooc_host_file)):
+            t0 = time.perf_counter()
+            fn(dev, report, workdir)
+            log(f"phase 9 ({part}): took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    for entry in report["kernels"]:
+        entry["launches_by_path"]["out_of_core"] = \
+            report["ooc_launches"][entry["name"]]
+    log(f"phase 9: took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: the repository (src/repro_torch) is not beside "
@@ -1638,7 +2106,8 @@ def main() -> int:
               ("em agreement", phase_em_agreement), ("times", phase_times),
               ("trace", phase_trace), ("request trace", phase_request_trace),
               ("paper comparison", phase_paper_comparison),
-              ("serving", phase_serving)]
+              ("serving", phase_serving),
+              ("out of core", phase_out_of_core)]
     for name, fn in phases:
         if failures:
             log(f"skipping phase {name!r} after a failure")

@@ -1,16 +1,27 @@
-"""Estimator facades of the port (port of ``repro/api/estimators.py``,
-resident arms): :class:`GMMEstimator`, :class:`KMeansEstimator`, the
-federated runners :class:`FedGenGMM`, :class:`DEM`, :class:`FedEM` and
-:class:`FedKMeans`, the strategy seam :func:`fit_federated`, and the
-scorers ``score`` / ``log_prob`` / ``bic``.
+"""Estimator facades of the port (port of ``repro/api/estimators.py``):
+:class:`GMMEstimator`, :class:`KMeansEstimator`, the federated runners
+:class:`FedGenGMM`, :class:`DEM`, :class:`FedEM` and :class:`FedKMeans`, the
+strategy seam :func:`fit_federated`, and the scorers ``score`` /
+``log_prob`` / ``bic``.
 
 Each facade holds one validated :class:`FitConfig`, whose ``device``
-(default ``"cuda"``) says where it runs; data arrive as numpy arrays or
-tensors and are moved there, federated clients as a padded
-``ClientSplit``. Seeds replace the JAX package's keys: an explicit
-``seed=`` wins, else the config's. DataSource inputs, uplink transforms,
-``dp`` and ``async_policy`` come with later slices; passing one is a
-``TypeError``.
+(default ``"cuda"``) says where it runs, and dispatches on the type of what
+it is handed, as the JAX package's facades do:
+
+=====================  ==================================================
+facade                 accepted inputs
+=====================  ==================================================
+``GMMEstimator.fit``   ``(N, d)`` array · ``DataSource``
+``KMeansEstimator.fit``  ``(N, d)`` array · ``DataSource``
+``score`` / ``log_prob`` / ``bic``  ``(N, d)`` array · ``DataSource``
+``FedGenGMM.run``      ``ClientSplit`` · list of ``DataSource``
+``DEM`` / ``FedEM`` / ``FedKMeans.run``  ``ClientSplit`` · list of ``DataSource``
+=====================  ==================================================
+
+Arrays (numpy or tensors) are moved to the device; a source streams its
+blocks there. Seeds replace the JAX package's keys: an explicit ``seed=``
+wins, else the config's. Uplink transforms, ``dp`` and ``async_policy``
+come with a later slice; passing one is a ``TypeError``.
 """
 from __future__ import annotations
 
@@ -19,12 +30,14 @@ from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.core.config import FitConfig
+from repro_torch.core.config import (FitConfig, is_source, is_source_list,
+                                     require_array_weights)
 from repro_torch.core.dem import DEMResult, _resolve_init, dem_cfg
 from repro_torch.core.em import (EMResult, bic_streaming, fit_gmm_bic_cfg,
                                  fit_gmm_cfg, log_prob_chunked,
                                  score_streaming)
-from repro_torch.core.fedgen import FedGenResult, fedgengmm_cfg
+from repro_torch.core.fedgen import (SYNTHETIC_MODES, FedGenResult,
+                                     fedgengmm_cfg)
 from repro_torch.core.gmm import GMM
 from repro_torch.core.kmeans import KMeansResult, kmeans_fit_cfg
 from repro_torch.fed.cohort import check_sampler_kind
@@ -60,14 +73,76 @@ def _as_int(value, name: str, minimum: int = 1) -> int:
     return int(value)
 
 
-def _placed(gmm: GMM, data, sample_weight, cfg: FitConfig):
+_INPUT_NAMES = {"array": "an (N, d) array", "source": "a DataSource",
+                "sources": "a list of per-client DataSources",
+                "split": "a ClientSplit"}
+
+
+def _accept_names(accept: tuple) -> str:
+    return " or ".join(_INPUT_NAMES[a] for a in accept)
+
+
+def _is_split(data) -> bool:
+    """A padded split of either package, or SplitClients."""
+    return all(hasattr(data, f) for f in ("data", "mask", "sizes"))
+
+
+def _classify(data, who: str, accept: tuple) -> str:
+    """THE input-type dispatch: array | source | sources | split, with a
+    pointed error naming what ``who`` accepts."""
+    if is_source(data):
+        kind = "source"
+    elif _is_split(data):
+        kind = "split"
+    elif is_source_list(data):
+        kind = "sources"
+    elif isinstance(data, (list, tuple)):
+        if not data:
+            raise TypeError(
+                f"{who}: got an empty {type(data).__name__} — "
+                + ("need at least one client DataSource"
+                   if "sources" in accept else
+                   f"{who} accepts {_accept_names(accept)}"))
+        if "sources" not in accept:
+            raise TypeError(
+                f"{who}: got a {type(data).__name__} — {who} accepts "
+                f"{_accept_names(accept)}")
+        raise TypeError(
+            f"{who}: got a {type(data).__name__} that is not a list of "
+            f"DataSources; federated clients must all be DataSource "
+            f"instances (wrap resident shards in ArraySource)")
+    elif hasattr(data, "shape") and hasattr(data, "ndim"):
+        kind = "array"
+    else:
+        raise TypeError(
+            f"{who}: cannot dispatch input of type {type(data).__name__}")
+    if kind not in accept:
+        raise TypeError(
+            f"{who} accepts {_accept_names(accept)}, "
+            f"got {_INPUT_NAMES[kind]}")
+    return kind
+
+
+def _check_weights(kind: str, sample_weight, who: str) -> None:
+    """Sample weights are array-path-only by design."""
+    if kind == "source":
+        require_array_weights(sample_weight, who)
+
+
+def _placed(gmm: GMM, data, sample_weight, cfg: FitConfig, who: str):
+    """The model on the config's device, and the data: a source as it is,
+    an (N, d) array as a float32 tensor there."""
+    kind = _classify(data, who, ("array", "source"))
+    _check_weights(kind, sample_weight, f"{who} over a DataSource")
     device = cfg.resolve_device()
+    if kind == "source":
+        return gmm.to(device), data, None, True
     x = torch.as_tensor(data, device=device).to(torch.float32)
     if x.ndim != 2:
         raise ValueError(f"expected (N, d) rows, got shape {tuple(x.shape)}")
     w = (None if sample_weight is None else
          torch.as_tensor(sample_weight, device=device).to(torch.float32))
-    return gmm.to(device), x, w
+    return gmm.to(device), x, w, False
 
 
 # ----------------------------------------------------------------------
@@ -76,30 +151,32 @@ def _placed(gmm: GMM, data, sample_weight, cfg: FitConfig):
 
 def score(gmm: GMM, data, sample_weight=None,
           config: Optional[FitConfig] = None) -> torch.Tensor:
-    """Average log-likelihood of ``data`` under ``gmm`` (the paper's
-    fitness score, Eq. 2), chunked per the config."""
+    """Average log-likelihood of ``data`` (array or DataSource) under
+    ``gmm`` (the paper's fitness score, Eq. 2), chunked per the config."""
     cfg = config if config is not None else FitConfig()
-    gmm, x, w = _placed(gmm, data, sample_weight, cfg)
-    return score_streaming(gmm, x, w, chunk_size=cfg.resolve_chunk(),
+    gmm, x, w, src = _placed(gmm, data, sample_weight, cfg,
+                             "repro.api.score")
+    return score_streaming(gmm, x, w, chunk_size=cfg.resolve_chunk(src),
                            backend=cfg.backend)
 
 
 def log_prob(gmm: GMM, data,
              config: Optional[FitConfig] = None) -> torch.Tensor:
-    """Per-row mixture log density -> (N,) (the anomaly scorer)."""
+    """Per-row mixture log density of an array or a DataSource -> (N,)
+    (the anomaly scorer)."""
     cfg = config if config is not None else FitConfig()
-    gmm, x, _ = _placed(gmm, data, None, cfg)
-    return log_prob_chunked(gmm, x, chunk_size=cfg.resolve_chunk(),
+    gmm, x, _, src = _placed(gmm, data, None, cfg, "repro.api.log_prob")
+    return log_prob_chunked(gmm, x, chunk_size=cfg.resolve_chunk(src),
                             backend=cfg.backend)
 
 
 def bic(gmm: GMM, data, sample_weight=None,
         config: Optional[FitConfig] = None) -> torch.Tensor:
-    """Bayesian Information Criterion (lower is better), chunked per the
-    config."""
+    """Bayesian Information Criterion (lower is better) on an array or a
+    DataSource, chunked per the config."""
     cfg = config if config is not None else FitConfig()
-    gmm, x, w = _placed(gmm, data, sample_weight, cfg)
-    return bic_streaming(gmm, x, w, chunk_size=cfg.resolve_chunk(),
+    gmm, x, w, src = _placed(gmm, data, sample_weight, cfg, "repro.api.bic")
+    return bic_streaming(gmm, x, w, chunk_size=cfg.resolve_chunk(src),
                          backend=cfg.backend)
 
 
@@ -123,6 +200,7 @@ class GMMEstimator:
 
         est = GMMEstimator(k=8).fit(x)     # on the card
         est.score(x_test)
+        GMMEstimator(k=8, chunk_size=65536).fit(NpyFileSource(path))
     """
 
     def __init__(self, k: Optional[int] = None, *,
@@ -142,9 +220,13 @@ class GMMEstimator:
     def fit(self, data, *, sample_weight=None,
             init_gmm: Optional[GMM] = None,
             seed: Optional[int] = None) -> "GMMEstimator":
-        """Fit on an (N, d) array. ``init_gmm`` warm-starts EM (not with
-        ``k_candidates``); ``seed`` overrides the config's. Returns
-        ``self``."""
+        """Fit on an (N, d) array or a DataSource (out of core).
+        ``sample_weight`` is per-row (arrays only); ``init_gmm`` warm-starts
+        EM (not with ``k_candidates``); ``seed`` overrides the config's.
+        Returns ``self``."""
+        kind = _classify(data, "GMMEstimator.fit", ("array", "source"))
+        _check_weights(kind, sample_weight,
+                       "GMMEstimator.fit over a DataSource")
         seed = self.config.seed if seed is None else seed
         if self.k_candidates is None:
             self.result_ = fit_gmm_cfg(seed, data, self.k, self.config,
@@ -188,8 +270,12 @@ class KMeansEstimator:
 
     def fit(self, data, *, sample_weight=None,
             seed: Optional[int] = None) -> "KMeansEstimator":
-        """Fit on an (N, d) array; ``seed`` overrides the config's.
-        Returns ``self``."""
+        """Fit on an (N, d) array or a DataSource (streamed seeding and
+        host-loop sweeps); ``sample_weight`` is per-row (arrays only),
+        ``seed`` overrides the config's. Returns ``self``."""
+        kind = _classify(data, "KMeansEstimator.fit", ("array", "source"))
+        _check_weights(kind, sample_weight,
+                       "KMeansEstimator.fit over a DataSource")
         seed = self.config.seed if seed is None else seed
         self.result_ = kmeans_fit_cfg(seed, data, self.k, self.config,
                                       sample_weight, self.n_init)
@@ -206,8 +292,9 @@ class KMeansEstimator:
         return self._result().centers
 
     @property
-    def assignments_(self) -> torch.Tensor:
-        """Per-row cluster index (N,)."""
+    def assignments_(self) -> Optional[torch.Tensor]:
+        """Per-row cluster index (N,); None after a DataSource fit (the
+        only O(N) output is skipped out of core)."""
         return self._result().assignments
 
     @property
@@ -217,18 +304,21 @@ class KMeansEstimator:
 
 
 class FedGenGMM:
-    """The paper's one-shot federated pipeline (Algorithm 4.1) over a padded
-    client split: local EM per client, ONE round of (K_c, 2d+1) parameter
-    blocks, server-side merge -> synthetic replay -> global refit. Fix
-    ``k_clients``, or pass ``k_candidates`` for per-client BIC selection;
-    fix ``k_global``, or leave it out for server-side BIC selection over
-    ``k_candidates``."""
+    """The paper's one-shot federated pipeline (Algorithm 4.1): local EM per
+    client, ONE round of (K_c, 2d+1) parameter blocks, server-side merge ->
+    synthetic replay -> global refit. Fix ``k_clients``, or pass
+    ``k_candidates`` for per-client BIC selection; fix ``k_global``, or
+    leave it out for server-side BIC selection over ``k_candidates``.
+    ``run`` takes a padded split (clients trained as one batch) or a list
+    of per-client DataSources (each local fit streamed); ``synthetic``
+    ("auto": "source" for source clients, "resident" for a split) says
+    whether S is held on the device or replayed block by block."""
 
     def __init__(self, *, k_clients: Optional[int] = None,
                  k_global: Optional[int] = None,
                  k_candidates: Optional[Sequence[int]] = None,
-                 h: int = 100, config: Optional[FitConfig] = None,
-                 **overrides):
+                 h: int = 100, synthetic: str = "auto",
+                 config: Optional[FitConfig] = None, **overrides):
         if k_clients is None and k_candidates is None:
             raise ValueError("pass k_clients (fixed local K) or "
                              "k_candidates (per-client BIC selection)")
@@ -240,18 +330,25 @@ class FedGenGMM:
         self.k_global = (None if k_global is None
                          else _as_int(k_global, "k_global"))
         self.k_candidates = _candidates(k_candidates)
+        if synthetic not in ("auto",) + SYNTHETIC_MODES:
+            raise ValueError(f"synthetic must be 'auto', 'resident' or "
+                             f"'source', got {synthetic!r}")
         self.h = _as_int(h, "h")
+        self.synthetic = synthetic
         self.config = _make_config(config, overrides)
         _kmeans_init_only(self.config, "FedGenGMM's local fits")
         self.result_: Optional[FedGenResult] = None
 
     def run(self, clients, *, seed: Optional[int] = None) -> FedGenResult:
         """Run over a ``ClientSplit`` (numpy, from either package's
-        ``partition``) or :class:`SplitClients`."""
+        ``partition``), :class:`SplitClients`, or a list of per-client
+        DataSources."""
+        _classify(clients, "FedGenGMM.run", ("split", "sources"))
         seed = self.config.seed if seed is None else seed
         self.result_ = fedgengmm_cfg(seed, clients, self.config,
                                      self.k_clients, self.k_global,
-                                     self.k_candidates, self.h)
+                                     self.k_candidates, self.h,
+                                     self.synthetic)
         return self.result_
 
     @property
@@ -264,7 +361,8 @@ class FedGenGMM:
 class DEM:
     """The iterative distributed-EM baseline (§5.4): one round of
     sufficient-statistics aggregation per EM iteration. The init scheme is
-    ``FitConfig.init`` ("auto" = "fed-kmeans", or "separated", "pilot");
+    ``FitConfig.init`` ("auto" = "fed-kmeans" on a split, "separated" on
+    sources, or "separated", "pilot");
     ``FitConfig.max_iter`` bounds the rounds. ``run`` returns a
     :class:`repro_torch.core.dem.DEMResult`."""
 
@@ -277,7 +375,9 @@ class DEM:
 
     def run(self, clients, *, seed: Optional[int] = None) -> DEMResult:
         """Run distributed EM to convergence (or ``max_iter`` rounds) over
-        a padded ``ClientSplit``."""
+        a padded ``ClientSplit`` or a list of per-client DataSources
+        ("auto" init is then "separated"; "pilot" raises)."""
+        _classify(clients, "DEM.run", ("split", "sources"))
         seed = self.config.seed if seed is None else seed
         self.result_ = dem_cfg(seed, clients, self.config, self.k)
         return self.result_
@@ -315,7 +415,9 @@ class FedEM:
 
     def run(self, clients, *, seed: Optional[int] = None) -> FedEMResult:
         """Run federated EM under the configured participation, cohort and
-        straggler policy, with the cohort-sized ledger."""
+        straggler policy, with the cohort-sized ledger, over a split or a
+        list of per-client DataSources."""
+        _classify(clients, "FedEM.run", ("split", "sources"))
         seed = self.config.seed if seed is None else seed
         self.result_ = fedem_cfg(seed, clients, self.config, self.k,
                                  participation=self.participation,
@@ -349,7 +451,8 @@ class FedKMeans:
     def run(self, clients, *,
             seed: Optional[int] = None) -> FedKMeansResult:
         """Run federated k-means to center convergence (or the round
-        budget)."""
+        budget) over a split or a list of per-client DataSources."""
+        _classify(clients, "FedKMeans.run", ("split", "sources"))
         seed = self.config.seed if seed is None else seed
         self.result_ = fed_kmeans_cfg(seed, clients, self.config, self.k)
         return self.result_

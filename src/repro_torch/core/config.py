@@ -1,6 +1,7 @@
 """`FitConfig`, the one training configuration every estimator consumes,
-and the backend and device resolvers the engine shares (port of
-``repro/core/config.py``, resident half: no ``DataSource`` arm).
+the backend, device and chunk resolvers the engine shares, and the
+input-type predicates of the out-of-core path (port of
+``repro/core/config.py``).
 
 The port adds ``device``. Entry points run on ``"cuda"`` unless the caller
 asks for ``"cpu"``; asking for CUDA where there is none raises, and nothing
@@ -21,6 +22,10 @@ INIT_STRATEGIES = ("auto", "kmeans", "separated", "pilot", "fed-kmeans")
 
 TOL_DEFAULTS = {"em": 1e-3, "kmeans": 1e-4}
 MAX_ITER_DEFAULTS = {"em": 200, "kmeans": 100}
+
+# Block size of the DataSource paths under chunk_size="auto": a source has
+# no full batch to fall back to, so it streams at this granularity.
+DEFAULT_SOURCE_CHUNK = 65536
 
 
 def resolve_device(device) -> torch.device:
@@ -86,6 +91,46 @@ def resolve_estep_backend(estep_backend: str, is_diagonal: bool,
     return resolve_backend(estep_backend, device, fused_supported=is_diagonal)
 
 
+def resolve_source_chunk(chunk_size) -> int:
+    """The one ``chunk_size`` rule of the source paths: ``None`` means
+    :data:`DEFAULT_SOURCE_CHUNK`; an explicit value must be positive
+    (``chunk_size=0`` is a caller's bug, not a request for the default)."""
+    if chunk_size is None:
+        return DEFAULT_SOURCE_CHUNK
+    chunk_size = int(chunk_size)
+    if chunk_size <= 0:
+        raise ValueError(f"chunk_size must be positive, got {chunk_size}")
+    return chunk_size
+
+
+def require_array_weights(sample_weight, what: str) -> None:
+    """The sample-weight rule: weights mask padded fixed-shape client
+    arrays, so they belong to resident inputs only; a DataSource block
+    stream is never padded and every source row has weight 1."""
+    if sample_weight is not None:
+        raise ValueError(
+            f"{what}: sample_weight is only supported on resident-array "
+            f"inputs. Weights exist to mask padded fixed-shape client "
+            f"arrays; DataSource block streams are never padded, so every "
+            f"source row has weight 1 by design. Represent ragged client "
+            f"shards directly with repro.data.sources.ConcatSource and "
+            f"drop the weights.")
+
+
+def is_source(data) -> bool:
+    """True if ``data`` is a single out-of-core DataSource."""
+    from repro_torch.data.sources import DataSource
+    return isinstance(data, DataSource)
+
+
+def is_source_list(data) -> bool:
+    """True if ``data`` is a non-empty list or tuple of per-client
+    DataSources (the federated out-of-core input)."""
+    from repro_torch.data.sources import DataSource
+    return (isinstance(data, (list, tuple)) and len(data) > 0
+            and all(isinstance(s, DataSource) for s in data))
+
+
 def derive_seed(seed: int, *path) -> int:
     """The seed of one stage or member below ``seed`` (the port's
     ``jax.random.fold_in``): ``path`` holds stage names and member
@@ -117,8 +162,9 @@ class FitConfig:
 
     backend : "auto" | "reference" | "fused" (see :func:`resolve_backend`);
         the E-step, the k-means assignment and scoring all follow it.
-    chunk_size : "auto" (full batch) or a positive int (rows per chunk of
-        the streaming engine, O(chunk·K) working set).
+    chunk_size : "auto" or a positive int (rows per chunk of the streaming
+        engine, O(chunk·K) working set). "auto" is the full batch on
+        resident arrays and :data:`DEFAULT_SOURCE_CHUNK` rows on sources.
     covariance_type : "diag" | "full".
     reg_covar : covariance floor added at every M-step.
     tol, max_iter : "auto" resolves per algorithm (:data:`TOL_DEFAULTS`,
@@ -182,9 +228,13 @@ class FitConfig:
             raise ValueError(f"device must be 'cuda' or 'cpu', "
                              f"got {self.device!r}")
 
-    def resolve_chunk(self):
-        """``None`` (full batch) under "auto", else the int chunk."""
-        return None if self.chunk_size == "auto" else self.chunk_size
+    def resolve_chunk(self, source: bool):
+        """The engine chunk for one input type: under "auto", ``None`` (full
+        batch) on resident arrays and :data:`DEFAULT_SOURCE_CHUNK` on
+        sources; an explicit int as it is."""
+        if self.chunk_size == "auto":
+            return DEFAULT_SOURCE_CHUNK if source else None
+        return self.chunk_size
 
     def resolve_tol(self, algorithm: str = "em") -> float:
         return TOL_DEFAULTS[algorithm] if self.tol == "auto" else self.tol

@@ -1,5 +1,5 @@
 """Distributed EM (DEM) baselines, §5.4 of the paper after Wu et al. '23
-(port of ``repro/core/dem.py``, resident split arm).
+(port of ``repro/core/dem.py``).
 
 Every client runs the E-step locally and ships sufficient statistics; the
 server sums them, runs the M-step and broadcasts the new parameters. One EM
@@ -27,12 +27,13 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.config import (FitConfig, derive_seed, make_generator,
-                                     resolve_device)
+from repro_torch.core.config import (FitConfig, derive_seed, is_source_list,
+                                     make_generator, resolve_device)
 from repro_torch.core.em import (e_step_stats, fit_gmm_cfg, init_from_means,
                                  m_step)
 from repro_torch.core.gmm import GMM
 from repro_torch.core.kmeans import federated_kmeans
+from repro_torch.data.sources import ConcatSource, DataSource
 from repro_torch.fed.ledger import (CommStats, RoundPayload, dtype_itemsize,
                                     gmm_payload_floats, stats_payload_floats)
 from repro_torch.fed.runtime import run_rounds
@@ -50,11 +51,12 @@ class DEMResult(NamedTuple):
 INIT_SCHEME_NAMES = {1: "separated", 2: "pilot", 3: "fed-kmeans"}
 
 
-def _resolve_init(init: str) -> str:
-    """``auto`` is fed-kmeans (init 3) on a resident split; ``kmeans`` is
-    the single-model init and no DEM scheme."""
+def _resolve_init(init: str, sources: bool = False) -> str:
+    """``auto`` is fed-kmeans (init 3) on a resident split and separated
+    centers (init 1) on source clients (the pilot subset would upload raw
+    rows); ``kmeans`` is the single-model init and no DEM scheme."""
     if init == "auto":
-        return "fed-kmeans"
+        return "separated" if sources else "fed-kmeans"
     if init == "kmeans":
         raise ValueError(
             "init='kmeans' is the single-model GMM init; DEM init "
@@ -176,6 +178,8 @@ class DEMStrategy:
 
     def init_state(self, seed: int, backend) -> DEMState:
         seed = derive_seed(seed, "init")
+        if backend.kind == "sources":
+            return self._init_sources(seed, backend)
         data, mask, d = backend.data, backend.mask, backend.dim
         if self.init == "separated":
             centers = max_separated_centers(seed, self.k, d,
@@ -196,6 +200,28 @@ class DEMStrategy:
                                reg_covar=self.reg_covar)
         return self.state_from_gmm(gmm0)
 
+    def _init_sources(self, seed: int, backend) -> DEMState:
+        """The init over source clients: separated or fed-kmeans centers
+        (each client's local k-means streamed), then the data's variance
+        streamed over the union of the clients."""
+        if self.init == "separated":
+            centers = max_separated_centers(seed, self.k, backend.dim,
+                                            device=backend.device)
+        elif self.init == "fed-kmeans":
+            centers = federated_kmeans(seed, backend.sources, self.k,
+                                       chunk_size=self.chunk,
+                                       assign_backend=self.backend,
+                                       device=backend.device)
+        else:  # "pilot"
+            raise ValueError(
+                "DEM init 'pilot' uploads raw rows and needs resident "
+                "client data; use a ClientSplit for it")
+        gmm0 = init_from_means(centers, ConcatSource(backend.sources),
+                               covariance_type=self.covariance_type,
+                               reg_covar=self.reg_covar,
+                               chunk_size=self.chunk)
+        return self.state_from_gmm(gmm0)
+
     def state_from_gmm(self, gmm0: GMM) -> DEMState:
         """Round-0 state around an externally built initial model."""
         neg_inf = torch.tensor(float("-inf"), dtype=gmm0.means.dtype,
@@ -212,7 +238,10 @@ class DEMStrategy:
         """The E-step of a batch of clients ``x (m, N, d)`` against the
         broadcast model: per-client statistics with a leading axis m (the
         uplink; additive, so the backend sums them). On the fused backend
-        this is one ``estep_stats`` launch for the batch."""
+        this is one ``estep_stats`` launch for the batch. A source client's
+        E-step streams its blocks (one launch a block)."""
+        if isinstance(x, DataSource):
+            return e_step_stats(state.gmm, x, None, self.backend, self.chunk)
         return e_step_stats(_broadcast(state.gmm, x.shape[0]), x, w,
                             self.backend, self.chunk)
 
@@ -260,12 +289,15 @@ class DEMStrategy:
 
 
 def dem_cfg(seed: int, clients, config: FitConfig, k: int) -> DEMResult:
-    """Run DEM on a padded client split: the cfg-core behind
-    ``repro_torch.api.DEM``. The init scheme is ``config.init`` ("auto" =
-    fed-kmeans); ``config.max_iter`` bounds the rounds."""
+    """Run DEM on a padded client split or a list of per-client DataSources:
+    the cfg-core behind ``repro_torch.api.DEM``. The init scheme is
+    ``config.init`` ("auto" = fed-kmeans on a split, separated on
+    sources); ``config.max_iter`` bounds the rounds."""
+    sources = is_source_list(clients)
     strategy = DEMStrategy(
         k=k, covariance_type=config.covariance_type, backend=config.backend,
-        chunk=config.resolve_chunk(), init=_resolve_init(config.init),
+        chunk=config.resolve_chunk(sources),
+        init=_resolve_init(config.init, sources),
         tol=config.resolve_tol("em"), reg_covar=config.reg_covar)
     return run_rounds(strategy, clients, seed=seed,
                       device=config.resolve_device(),

@@ -1,6 +1,5 @@
-"""Expectation-Maximization for GMMs (port of ``repro/core/em.py``,
-resident-array half), plus the streaming-statistics engine and BIC model
-selection.
+"""Expectation-Maximization for GMMs (port of ``repro/core/em.py``), plus
+the streaming-statistics engine and BIC model selection.
 
 The engine runs on *stacked* problems: rows ``x (B, N, d)`` with weights
 ``w (B, N)`` and one model per member, every leaf with a leading axis B.
@@ -14,6 +13,14 @@ padding), and let the engine pad row counts to chunk boundaries for free:
 zero-weight rows add exact zeros to every statistic. ``chunk_size`` streams
 any reduction in fixed-size row chunks, in chunk order, with an
 O(chunk·K) working set.
+
+Every engine entry point also takes a :class:`DataSource` in the rows
+position: a host loop over its blocks (``prefetch_blocks``, each block
+padded to one row count with a 0/1 mask and delivered on the engine's
+device) runs the same per-block statistics as a batch of one, summed in
+block order, so N never has to be resident and source-backed fits are
+bit-identical across source types holding the same rows. The device of a
+source reduction is the model's (``gmm.device``), or the config's.
 """
 from __future__ import annotations
 
@@ -21,9 +28,12 @@ from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
-from repro_torch.core.config import (FitConfig, derive_seed, resolve_backend,
-                                     resolve_estep_backend)
+from repro_torch.core.config import (FitConfig, derive_seed,
+                                     require_array_weights, resolve_backend,
+                                     resolve_estep_backend,
+                                     resolve_source_chunk)
 from repro_torch.core.gmm import GMM
+from repro_torch.data.sources import DataSource, prefetch_blocks
 
 
 class EMResult(NamedTuple):
@@ -83,11 +93,43 @@ def _select(mask: torch.Tensor, new: torch.Tensor,
 # ----------------------------------------------------------------------
 
 def _tree_add(a, b):
+    """``a + b`` over every tensor of two payloads of one structure (a
+    tensor or a (named) tuple of tensors)."""
+    if isinstance(a, torch.Tensor):
+        return a + b
     vals = [u + v for u, v in zip(a, b)]
     return type(a)(*vals) if hasattr(a, "_fields") else tuple(vals)
 
 
-def streaming_map_reduce(block_fn: Callable, arrays, chunk_size: int):
+def _source_map_reduce(block_fn: Callable, source: DataSource,
+                       chunk_size: int, device):
+    """The host block loop of a :class:`DataSource`: ``block_fn(xb, wb) ->
+    (stats, per_row)`` on every ``(block, mask)`` pair of
+    :func:`prefetch_blocks` on ``device``. ``stats`` accumulate in block
+    order, in at least float32, and are cast back to ``block_fn``'s
+    dtypes; ``per_row`` outputs are concatenated and cut back to the
+    source's rows (padding only trails the last block)."""
+    acc = dtypes = None
+    parts: list = []
+    for xb, wb in prefetch_blocks(source, chunk_size, device=device):
+        stats, rows = block_fn(xb, wb)
+        if acc is None:
+            dtypes = [t.dtype for t in stats]
+            acc = [t.to(torch.promote_types(t.dtype, torch.float32))
+                   for t in stats]
+        else:
+            acc = [a + t.to(a.dtype) for a, t in zip(acc, stats)]
+        parts.append(rows)
+    if acc is None:
+        raise ValueError(f"source yielded no blocks: {source!r}")
+    vals = [a.to(dt) for a, dt in zip(acc, dtypes)]
+    stats = type(stats)(*vals) if hasattr(stats, "_fields") else tuple(vals)
+    rows = tuple(torch.cat(p, dim=0)[:source.num_rows] for p in zip(*parts))
+    return stats, rows
+
+
+def streaming_map_reduce(block_fn: Callable, arrays, chunk_size: int,
+                         device="cuda"):
     """Run ``block_fn`` over fixed-size row chunks of ``arrays`` (rows on
     axis 1 of every array).
 
@@ -96,7 +138,13 @@ def streaming_map_reduce(block_fn: Callable, arrays, chunk_size: int):
     map-only) and ``per_row`` a tuple of (B, chunk, ...) outputs
     (concatenated and cut back to N rows, pass ``()`` for reduce-only).
     The last chunk is zero-padded; padded rows carry weight 0.
+
+    ``arrays`` may instead be one :class:`DataSource`: ``block_fn`` then
+    gets ``(block (R, d), mask (R,))`` on ``device`` and returns per-row
+    outputs of (R, ...) (:func:`_source_map_reduce`).
     """
+    if isinstance(arrays, DataSource):
+        return _source_map_reduce(block_fn, arrays, int(chunk_size), device)
     chunk_size = int(chunk_size)
     if chunk_size <= 0:
         raise ValueError(f"chunk_size must be positive, got {chunk_size}")
@@ -116,17 +164,23 @@ def streaming_map_reduce(block_fn: Callable, arrays, chunk_size: int):
     return acc, rows
 
 
-def streaming_reduce(block_fn: Callable, arrays, chunk_size: int):
+def streaming_reduce(block_fn: Callable, arrays, chunk_size: int,
+                     device="cuda"):
     """Reduce-only :func:`streaming_map_reduce`."""
     stats, _ = streaming_map_reduce(lambda *a: (block_fn(*a), ()), arrays,
-                                    chunk_size)
+                                    chunk_size, device)
     return stats
 
 
 def reduce_rows(block_fn: Callable, arrays,
-                chunk_size: Optional[int] = None):
+                chunk_size: Optional[int] = None, device="cuda"):
     """THE chunk dispatch: ``None`` runs one full-batch call, an integer
-    streams fixed-size chunks through :func:`streaming_reduce`."""
+    streams fixed-size chunks through :func:`streaming_reduce`. A
+    :class:`DataSource` always streams, ``None`` meaning
+    :data:`DEFAULT_SOURCE_CHUNK` rows a block, on ``device``."""
+    if isinstance(arrays, DataSource):
+        return streaming_reduce(block_fn, arrays,
+                                resolve_source_chunk(chunk_size), device)
     if chunk_size is None:
         return block_fn(*arrays)
     return streaming_reduce(block_fn, arrays, chunk_size)
@@ -188,12 +242,29 @@ def e_step_stats(gmm: GMM, x: torch.Tensor,
     ``chunk_size`` streams either through the engine in O(chunk·K) memory.
     ``x`` is (N, d) with one model, or (B, N, d) with a stacked model.
     """
+    if isinstance(x, DataSource):
+        require_array_weights(sample_weight, "e_step_stats over a DataSource")
+        backend = resolve_estep_backend(estep_backend, gmm.is_diagonal,
+                                        gmm.device)
+        return reduce_rows(
+            lambda xb, wb: _estep_block(gmm, xb, wb, backend), x,
+            chunk_size, gmm.device)
     backend = resolve_estep_backend(estep_backend, gmm.is_diagonal, x.device)
     w = _weights(x, sample_weight)
     if x.ndim == 2:
         return _first(_e_step_batched(_lift(gmm), x[None], w[None], backend,
                                       chunk_size))
     return _e_step_batched(gmm, x, w, backend, chunk_size)
+
+
+def _estep_block(gmm: GMM, xb: torch.Tensor, wb: torch.Tensor,
+                 backend: str) -> SufficientStats:
+    """The E-step of one source block with its 0/1 pad mask, run as a
+    batch of one through the resident chunk path (on the fused backend one
+    ``estep_stats`` launch a block), so a source and an array at the same
+    chunk take the same operations."""
+    return _first(_e_step_batched(_lift(gmm), xb[None], wb[None], backend,
+                                  None))
 
 
 def m_step(stats: SufficientStats, reg_covar: float = 1e-6) -> GMM:
@@ -252,7 +323,15 @@ def log_prob_chunked(gmm: GMM, x: torch.Tensor,
                      chunk_size: Optional[int] = 4096,
                      backend: str = "auto") -> torch.Tensor:
     """``GMM.log_prob`` in fixed-size row chunks -> (N,). ``None`` runs one
-    full-batch block with the same backend resolution."""
+    full-batch block with the same backend resolution. ``x`` may be a
+    :class:`DataSource` (the (N,) output is O(N), 4 bytes a row; the
+    (N, K) block never exists)."""
+    if isinstance(x, DataSource):
+        backend = resolve_backend(backend, gmm.device, gmm.is_diagonal)
+        _, (lp,) = streaming_map_reduce(
+            lambda xb, wb: ((), (_log_prob_block(gmm, xb, backend),)), x,
+            resolve_source_chunk(chunk_size), gmm.device)
+        return lp
     backend = resolve_backend(backend, x.device, gmm.is_diagonal)
     if chunk_size is None:
         return _log_prob_block(gmm, x, backend)
@@ -266,6 +345,15 @@ def _score_sums(gmm: GMM, x: torch.Tensor,
                 sample_weight: Optional[torch.Tensor],
                 chunk_size: Optional[int], backend: str):
     """(sum_n w_n log p(x_n), sum_n w_n) through the engine."""
+    if isinstance(x, DataSource):
+        require_array_weights(sample_weight, "scoring over a DataSource")
+        backend = resolve_backend(backend, gmm.device, gmm.is_diagonal)
+
+        def source_block(xb, wb):
+            lp = _log_prob_block(gmm, xb, backend)
+            return torch.sum(lp * wb), wb.sum()
+
+        return reduce_rows(source_block, x, chunk_size, gmm.device)
     backend = resolve_backend(backend, x.device, gmm.is_diagonal)
     w = _weights(x, sample_weight)
 
@@ -332,11 +420,28 @@ def init_from_kmeans(seed: int, x: torch.Tensor, k: int,
                      covariance_type: str = "diag",
                      reg_covar: float = 1e-6,
                      chunk_size: Optional[int] = None,
-                     assign_backend: str = "auto") -> GMM:
+                     assign_backend: str = "auto", device="cuda") -> GMM:
     """sklearn-style init: k-means labels -> label stats -> M-step. A batch
     x (B, N, d) gives a stacked model, member b seeded from
-    ``derive_seed(seed, b)``."""
-    from repro_torch.core.kmeans import kmeans_multi
+    ``derive_seed(seed, b)``. A :class:`DataSource` runs out of core on
+    ``device``: streamed k-means++ seeding, host-loop Lloyd sweeps, and the
+    label statistics summed in a last assignment pass
+    (``kmeans_label_block``), so no (N,) label vector exists."""
+    from repro_torch.core.kmeans import (kmeans_label_block, kmeans_multi,
+                                         kmeans_multi_source)
+    if isinstance(x, DataSource):
+        require_array_weights(sample_weight,
+                              "init_from_kmeans over a DataSource")
+        cs = resolve_source_chunk(chunk_size)
+        res = kmeans_multi_source(seed, x, k, max_iter=50, chunk_size=cs,
+                                  assign_backend=assign_backend,
+                                  device=device)
+        backend = resolve_backend(assign_backend, res.centers.device)
+        stats = streaming_reduce(
+            lambda xb, wb: kmeans_label_block(res.centers, xb, wb,
+                                              covariance_type, backend),
+            x, cs, res.centers.device)
+        return m_step(stats, reg_covar)
     w = _weights(x, sample_weight)
     res = kmeans_multi(seed, x, k, sample_weight=w, max_iter=50,
                        chunk_size=chunk_size, assign_backend=assign_backend)
@@ -345,26 +450,48 @@ def init_from_kmeans(seed: int, x: torch.Tensor, k: int,
     return m_step(stats, reg_covar)
 
 
+def _moments_block(xb: torch.Tensor, wb: torch.Tensor):
+    """(sum w x, sum w x², sum w) of one block: streamed data moments
+    (``wb`` is the pad mask, so padded rows count for nothing)."""
+    wc = wb.unsqueeze(-1)
+    return (torch.sum(xb * wc, dim=0), torch.sum(xb * xb * wc, dim=0),
+            torch.sum(wb))
+
+
 def init_from_means(means: torch.Tensor, x: torch.Tensor,
                     sample_weight: Optional[torch.Tensor] = None,
                     covariance_type: str = "diag",
-                    reg_covar: float = 1e-6) -> GMM:
-    """Init with given centers, uniform weights and the data's (weighted,
-    two-pass) variance as every component's covariance: the DEM baselines'
-    init, where the server proposes centers without seeing client data.
-    x (N, d); zero-weight rows count for nothing."""
+                    reg_covar: float = 1e-6,
+                    chunk_size: Optional[int] = None) -> GMM:
+    """Init with given centers, uniform weights and the data's variance as
+    every component's covariance: the DEM baselines' init, where the server
+    proposes centers without seeing client data. x (N, d) with the
+    weighted two-pass variance (zero-weight rows count for nothing), or a
+    :class:`DataSource` with one-pass streamed moments on the centers'
+    device (E[x²] - E[x]², clamped at zero; ``chunk_size`` applies to
+    sources only)."""
     k, d = means.shape
-    w = _weights(x, sample_weight)
-    wsum = torch.clamp(w.sum(), min=1e-12)
-    mean = torch.sum(x * w.unsqueeze(-1), dim=0) / wsum
-    var = (torch.sum((x - mean) ** 2 * w.unsqueeze(-1), dim=0) / wsum
-           + reg_covar)
-    weights = torch.full((k,), 1.0 / k, dtype=x.dtype, device=x.device)
+    if isinstance(x, DataSource):
+        require_array_weights(sample_weight,
+                              "init_from_means over a DataSource")
+        s, ss, cnt = reduce_rows(_moments_block, x, chunk_size, means.device)
+        wsum = torch.clamp(cnt, min=1e-12)
+        mean = s / wsum
+        var = torch.clamp(ss / wsum - mean * mean, min=0.0) + reg_covar
+        dtype = means.dtype
+    else:
+        w = _weights(x, sample_weight)
+        wsum = torch.clamp(w.sum(), min=1e-12)
+        mean = torch.sum(x * w.unsqueeze(-1), dim=0) / wsum
+        var = (torch.sum((x - mean) ** 2 * w.unsqueeze(-1), dim=0) / wsum
+               + reg_covar)
+        dtype, means = x.dtype, means.to(x)
+    weights = torch.full((k,), 1.0 / k, dtype=dtype, device=means.device)
     if covariance_type == "diag":
         covs = var.expand(k, d).contiguous()
     else:
         covs = torch.diag(var).expand(k, d, d).contiguous()
-    return GMM(weights, means.to(x), covs)
+    return GMM(weights, means, covs.to(dtype))
 
 
 # ----------------------------------------------------------------------
@@ -402,6 +529,43 @@ def _em_loop(gmm0: GMM, x: torch.Tensor, w: torch.Tensor, tol: float,
     return gmm, ll, it, converged
 
 
+def host_em_loop(step: Callable, gmm0: GMM, tol: float, max_iter: int):
+    """The host EM convergence loop of the out-of-core trainers: a
+    bootstrap ``step(gmm) -> (new_gmm, avg_ll float)``, then steps while
+    ``it < max_iter`` and the avg-loglik change exceeds ``tol``; the same
+    state transitions as :func:`_em_loop`. Returns ``(gmm, avg_ll,
+    n_iter, converged)``, tensors on the model's device."""
+    tol = float(tol)
+    gmm, ll = step(gmm0)
+    prev_ll, it = float("-inf"), 1
+    while it < max_iter and abs(ll - prev_ll) > tol:
+        new_gmm, avg_ll = step(gmm)
+        gmm, prev_ll, ll, it = new_gmm, ll, avg_ll, it + 1
+    converged = abs(ll - prev_ll) <= tol
+    dev = gmm.device
+    return (gmm, torch.tensor(ll, dtype=gmm.means.dtype, device=dev),
+            torch.tensor(it, device=dev), torch.tensor(converged, device=dev))
+
+
+def _em_loop_source(gmm0: GMM, source: DataSource, tol: float,
+                    reg_covar: float, max_iter: int, estep_backend: str,
+                    chunk_size: int):
+    """Out-of-core twin of :func:`_em_loop` on the model's device: every
+    iteration one pass over the source's blocks (one ``estep_stats`` launch
+    a block on the fused backend) and one read of the avg loglik."""
+    backend = resolve_estep_backend(estep_backend, gmm0.is_diagonal,
+                                    gmm0.device)
+
+    def step(gmm):
+        stats = streaming_reduce(
+            lambda xb, wb: _estep_block(gmm, xb, wb, backend), source,
+            chunk_size, gmm.device)
+        avg_ll = float(stats.loglik / torch.clamp(stats.wsum, min=1e-12))
+        return m_step(stats, reg_covar), avg_ll
+
+    return host_em_loop(step, gmm0, tol, max_iter)
+
+
 def fit_gmm_cfg(seed, x, k: int, config: FitConfig,
                 sample_weight=None, init_gmm: Optional[GMM] = None
                 ) -> EMResult:
@@ -416,18 +580,35 @@ def fit_gmm_cfg(seed, x, k: int, config: FitConfig,
     init. ``config.backend`` selects the E-step and the k-means assignment
     implementation; an integer ``config.chunk_size`` streams the init and
     every E-step.
+
+    ``x`` may be a :class:`DataSource`: init, every E-step and the
+    convergence test then run as host block loops on the config's device
+    with an O(chunk·K) working set ("auto" streams
+    :data:`DEFAULT_SOURCE_CHUNK`-row blocks).
     """
     device = config.resolve_device()
     backend = resolve_estep_backend(
         config.backend,
         config.is_diagonal if init_gmm is None else init_gmm.is_diagonal,
         device)
+    if isinstance(x, DataSource):
+        require_array_weights(sample_weight, "fit_gmm over a DataSource")
+        cs = config.resolve_chunk(source=True)
+        if init_gmm is None:
+            init_gmm = init_from_kmeans(
+                seed, x, k, covariance_type=config.covariance_type,
+                reg_covar=config.reg_covar, chunk_size=cs,
+                assign_backend=config.backend, device=device)
+        gmm, ll, it, converged = _em_loop_source(
+            init_gmm.to(device), x, config.resolve_tol("em"),
+            config.reg_covar, config.resolve_max_iter("em"), backend, cs)
+        return EMResult(gmm, ll, it, converged)
     x = torch.as_tensor(x, device=device).to(torch.float32)
     w = _weights(x, sample_weight)
     single = x.ndim == 2
     if single:
         x, w = x[None], w[None]
-    cs = config.resolve_chunk()
+    cs = config.resolve_chunk(source=False)
     if init_gmm is None:
         init_gmm = init_from_kmeans(seed, x, k, w, config.covariance_type,
                                     config.reg_covar, chunk_size=cs,
@@ -451,16 +632,22 @@ def fit_gmm_bic_cfg(seed: int, x, k_candidates: Sequence[int],
     i seeded with ``derive_seed(seed, i)``), score each fit with
     :func:`bic_streaming` (one ``gmm_log_prob`` launch a chunk on the fused
     backend), and return the first fit of least BIC with every candidate's
-    BIC. x (N, d)."""
+    BIC. x (N, d), or a :class:`DataSource` (every candidate's init, EM and
+    BIC then run out of core)."""
     device = config.resolve_device()
-    x = torch.as_tensor(x, device=device).to(torch.float32)
-    w = (None if sample_weight is None else
-         torch.as_tensor(sample_weight, device=device).to(torch.float32))
+    source = isinstance(x, DataSource)
+    if source:
+        require_array_weights(sample_weight, "fit_gmm_bic over a DataSource")
+        w = None
+    else:
+        x = torch.as_tensor(x, device=device).to(torch.float32)
+        w = (None if sample_weight is None else
+             torch.as_tensor(sample_weight, device=device).to(torch.float32))
     best, best_bic, bics = None, float("inf"), {}
     for i, k in enumerate(k_candidates):
         res = fit_gmm_cfg(derive_seed(seed, i), x, k, config, w)
         b = float(bic_streaming(res.gmm, x, w,
-                                chunk_size=config.resolve_chunk(),
+                                chunk_size=config.resolve_chunk(source),
                                 backend=config.backend))
         bics[k] = b
         if b < best_bic:

@@ -1,5 +1,5 @@
 """FedGenGMM (Algorithm 4.1): one-shot federated GMM learning (port of
-``repro/core/fedgen.py``, resident split arm).
+``repro/core/fedgen.py``).
 
 Pipeline:
   1. local EM per client, all clients as one stacked batch over the padded
@@ -10,7 +10,11 @@ Pipeline:
   4. the server samples |S| = H * sum_c K_c synthetic rows from the merged
      mixture and trains the global GMM on S (fixed K or BIC selection).
 
-Out-of-core clients come with a later slice.
+Clients arrive as a padded split or as a list of per-client
+:class:`DataSource` streams (out of core: each local fit streams its
+client's blocks, a host loop over clients). With ``synthetic="source"``
+the server never materializes S either: the refit replays a
+:class:`SyntheticGMMSource` of the merged mixture block by block.
 """
 from __future__ import annotations
 
@@ -19,10 +23,12 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from repro_torch.core.config import FitConfig, derive_seed, make_generator
+from repro_torch.core.config import (FitConfig, derive_seed, is_source_list,
+                                     make_generator)
 from repro_torch.core.em import (EMResult, bic_streaming, fit_gmm_bic_cfg,
                                  fit_gmm_cfg)
 from repro_torch.core.gmm import GMM, merge_gmms
+from repro_torch.data.sources import DataSource, SyntheticGMMSource
 from repro_torch.fed.ledger import (CommStats, RoundPayload, dtype_itemsize,
                                     payload_floats)
 from repro_torch.fed.runtime import run_rounds
@@ -31,7 +37,9 @@ from repro_torch.fed.runtime import run_rounds
 class FedGenResult(NamedTuple):
     global_gmm: GMM
     local_gmms: list[GMM]
-    synthetic: torch.Tensor    # the server-side dataset S, (|S|, d)
+    synthetic: object          # the server-side dataset S: an (|S|, d)
+    #                            tensor, or the SyntheticGMMSource the refit
+    #                            replayed (synthetic="source")
     comm: CommStats
     local_results: list[EMResult]
 
@@ -68,7 +76,7 @@ def train_locals_bic_cfg(seed: int, data: torch.Tensor, mask: torch.Tensor,
                           k, config, sample_weight=mask)
         scores = torch.stack([
             bic_streaming(res.gmm[m], data[m], mask[m],
-                          chunk_size=config.resolve_chunk(),
+                          chunk_size=config.resolve_chunk(False),
                           backend=config.backend) for m in range(c)])
         for m, b in enumerate(scores.tolist()):
             bics[m][k] = b
@@ -79,18 +87,54 @@ def train_locals_bic_cfg(seed: int, data: torch.Tensor, mask: torch.Tensor,
     return best, bics
 
 
+def train_locals_sources_cfg(seed: int, sources: Sequence[DataSource],
+                             config: FitConfig, k: Optional[int] = None,
+                             k_candidates: Optional[Sequence[int]] = None
+                             ) -> list[EMResult]:
+    """Local TrainGMM per client, each over its own :class:`DataSource`, a
+    host loop over clients: the edge regime, where a client's dataset
+    never has to fit in memory, only one block of it. Fixed ``k`` or
+    per-client BIC selection over ``k_candidates``; client i is seeded
+    with ``derive_seed(seed, i)``. No padding, masks or weights."""
+    if k is None and k_candidates is None:
+        raise ValueError("need k or k_candidates")
+    results = []
+    for i, src in enumerate(sources):
+        sub = derive_seed(seed, i)
+        if k is not None:
+            res = fit_gmm_cfg(sub, src, k, config)
+        else:
+            res, _ = fit_gmm_bic_cfg(sub, src, k_candidates, config)
+        results.append(res)
+    return results
+
+
+SYNTHETIC_MODES = ("resident", "source")
+
+
 def aggregate_cfg(seed: int, local_gmms: list[GMM], sizes,
                   config: FitConfig, k_global: Optional[int] = None,
                   h: int = 100,
-                  k_candidates: Optional[Sequence[int]] = None
-                  ) -> tuple[EMResult, torch.Tensor]:
+                  k_candidates: Optional[Sequence[int]] = None,
+                  synthetic: str = "resident"):
     """Algorithm 4.1 lines 21-31: merge (the local models may differ in K),
-    sample S, train the global model on S (held on the device): of
-    ``k_global`` components, or the BIC choice among ``k_candidates``."""
+    sample S, train the global model on S: of ``k_global`` components, or
+    the BIC choice among ``k_candidates``. ``synthetic="resident"`` holds S
+    on the device; ``"source"`` replays a :class:`SyntheticGMMSource` of the
+    merged mixture, regenerated block by block (cached on the device up to
+    its ``cache_rows``), so the server's memory does not grow with H or the
+    number of clients. Returns the refit and S (tensor or source)."""
+    if synthetic not in SYNTHETIC_MODES:
+        raise ValueError(f"synthetic must be 'resident' or 'source', "
+                         f"got {synthetic!r}")
     merged = merge_gmms(local_gmms, sizes)
     n_synth = h * sum(g.n_components for g in local_gmms)
-    gen = make_generator(derive_seed(seed, "sample"), merged.device)
-    s = merged.sample(gen, n_synth)
+    if synthetic == "source":
+        s = SyntheticGMMSource(merged, n_synth, derive_seed(seed, "sample"),
+                               device=merged.device)
+    else:
+        gen = make_generator(derive_seed(seed, "sample"), merged.device)
+        s = merged.sample(gen, n_synth)
     if k_global is not None:
         res = fit_gmm_cfg(derive_seed(seed, "fit"), s, k_global, config)
     else:
@@ -107,14 +151,18 @@ class FedGenStrategy:
     single round trains every client locally (fixed ``k_clients``, or BIC
     selection over ``k_candidates``, which makes K_c heterogeneous), then
     merges, samples and refits on the server (``k_global``, or BIC over
-    ``k_candidates``). Uplink is each client's (K_c, 2d+1) parameter block
-    + |D_c|, downlink the global broadcast, one round by construction."""
+    ``k_candidates``). Padded split clients train as one batch, source
+    clients one after another, each streamed; ``synthetic`` says whether S
+    is resident or replayed. Uplink is each client's (K_c, 2d+1) parameter
+    block + |D_c|, downlink the global broadcast, one round by
+    construction."""
 
     config: FitConfig
     k_clients: Optional[int] = None
     k_global: Optional[int] = None
     k_candidates: Optional[tuple] = None
     h: int = 100
+    synthetic: str = "resident"
 
     one_shot = True
     name = "fedgen"
@@ -124,7 +172,11 @@ class FedGenStrategy:
                 "seed_agg": derive_seed(seed, "aggregate")}
 
     def run_once(self, state: dict, backend) -> dict:
-        if self.k_clients is not None:
+        if backend.kind == "sources":
+            local_results = train_locals_sources_cfg(
+                state["seed_local"], backend.sources, self.config,
+                k=self.k_clients, k_candidates=self.k_candidates)
+        elif self.k_clients is not None:
             stacked = train_locals_cfg(state["seed_local"], backend.data,
                                        backend.mask, self.k_clients,
                                        self.config)
@@ -141,7 +193,8 @@ class FedGenStrategy:
         local_gmms = [r.gmm for r in local_results]
         res, synth = aggregate_cfg(state["seed_agg"], local_gmms,
                                    backend.sizes, self.config, self.k_global,
-                                   h=self.h, k_candidates=self.k_candidates)
+                                   h=self.h, k_candidates=self.k_candidates,
+                                   synthetic=self.synthetic)
         return {"res": res, "synth": synth, "local_gmms": local_gmms,
                 "local_results": local_results}
 
@@ -163,14 +216,19 @@ def fedgengmm_cfg(seed: int, clients, config: FitConfig,
                   k_clients: Optional[int] = None,
                   k_global: Optional[int] = None,
                   k_candidates: Optional[Sequence[int]] = None,
-                  h: int = 100) -> FedGenResult:
-    """Run the full one-shot pipeline on a padded client split (the
-    cfg-core behind ``repro_torch.api.FedGenGMM``): fix ``k_clients``, or
-    pass ``k_candidates`` for per-client BIC selection; fix ``k_global``,
-    or leave it None for server-side BIC selection over ``k_candidates``."""
+                  h: int = 100, synthetic: str = "auto") -> FedGenResult:
+    """Run the full one-shot pipeline (the cfg-core behind
+    ``repro_torch.api.FedGenGMM``) on a padded client split or a list of
+    per-client :class:`DataSource` streams: fix ``k_clients``, or pass
+    ``k_candidates`` for per-client BIC selection; fix ``k_global``, or
+    leave it None for server-side BIC selection over ``k_candidates``.
+    ``synthetic="auto"`` replays S from a source for source clients and
+    holds it resident for a split."""
+    if synthetic == "auto":
+        synthetic = "source" if is_source_list(clients) else "resident"
     strategy = FedGenStrategy(
         config=config, k_clients=k_clients, k_global=k_global,
         k_candidates=None if k_candidates is None else tuple(k_candidates),
-        h=h)
+        h=h, synthetic=synthetic)
     return run_rounds(strategy, clients, seed=seed,
                       device=config.resolve_device())

@@ -1,5 +1,6 @@
 """The federation runtime: one round loop under every federated algorithm
-of the port (port of ``repro/fed/runtime.py``, resident split backend).
+of the port (port of ``repro/fed/runtime.py``: the resident split and the
+out-of-core source backends).
 
 FedGenGMM, DEM, FedEM and FedKMeans all decompose into the same round::
 
@@ -15,7 +16,9 @@ communication ledger.
 - Iterative strategies implement ``init_state``, ``local_step(state, x, w,
   idx)`` (the update of a *batch* of clients: rows ``x (m, N, d)``, masks
   ``w (m, N)``, global indices ``idx (m,)`` -> an additive payload tuple
-  with a leading axis m, the port's stand-in for ``jax.vmap``),
+  with a leading axis m, the port's stand-in for ``jax.vmap``; on source
+  clients ``x`` is one client's :class:`DataSource`, ``w`` None and ``idx``
+  its index, and the payload has no client axis),
   ``server_combine(state, total)``, ``converged(state)``, optionally
   ``keep_going(state)`` and ``post_rounds(state, backend)``, and the same
   ``round_payload`` / ``finalize``.
@@ -23,8 +26,8 @@ communication ledger.
 The JAX package runs resident round loops as one jitted ``while_loop``.
 Here the loop runs on the host: one bootstrap round, then rounds while the
 strategy's ``keep_going`` holds, reading that one flag per round (one
-device sync), as the EM loop does (``core/em.py::_em_loop``). Sources,
-meshes, uplink transforms and executors come with later slices.
+device sync), as the EM loop does (``core/em.py::_em_loop``). Meshes,
+uplink transforms and executors come with later slices.
 """
 from __future__ import annotations
 
@@ -33,6 +36,8 @@ from typing import Any, Protocol, runtime_checkable
 import numpy as np
 import torch
 
+from repro_torch.core.config import is_source_list
+from repro_torch.core.em import _tree_add
 from repro_torch.fed.ledger import CommStats
 
 
@@ -117,11 +122,66 @@ class SplitClients:
         return _tree_map(lambda s: torch.sum(s, dim=0), per)
 
 
-def make_backend(clients, device) -> SplitClients:
+class SourceClients:
+    """Out-of-core clients: one :class:`DataSource` stream each, run on
+    ``device``. A round is a host loop over the (cohort) clients, each
+    streaming its own blocks through the engine; the payloads are summed in
+    cohort order, so the sum does not depend on how the clients were
+    scheduled."""
+
+    kind = "sources"
+
+    def __init__(self, sources, device):
+        self.sources = list(sources)
+        self.device = torch.device(device)
+
+    @property
+    def num_clients(self) -> int:
+        return len(self.sources)
+
+    @property
+    def population_clients(self) -> int:
+        return self.num_clients
+
+    @property
+    def dim(self) -> int:
+        return self.sources[0].dim
+
+    @property
+    def sizes(self) -> np.ndarray:
+        return np.asarray([s.num_rows for s in self.sources], np.int64)
+
+    def reduce_clients(self, local_step, state, cohort=None, weights=None):
+        """Run ``local_step(state, source, None, i)`` for every client, or
+        for the ``cohort`` (sorted global indices) only, skipping the
+        clients ``weights`` drops (0) and scaling the others by their
+        weight; sum the payloads in cohort order."""
+        members = (range(self.num_clients) if cohort is None
+                   else [int(i) for i in np.asarray(cohort)])
+        w = None if weights is None else np.asarray(weights)
+        total = None
+        for pos, i in enumerate(members):
+            if w is not None and w[pos] == 0.0:
+                continue    # a dropped client's step never runs
+            p = local_step(state, self.sources[i], None, i)
+            if w is not None and w[pos] != 1.0:
+                p = _tree_map(lambda s: s * float(w[pos]), p)
+            total = p if total is None else _tree_add(total, p)
+        if total is None:
+            raise ValueError("every client of the round was dropped")
+        return total
+
+
+def make_backend(clients, device):
     """THE client dispatch: a :class:`SplitClients` passes through (moved to
     ``device``), a padded split (any object with ``data``/``mask``/``sizes``
     arrays, such as ``repro_torch.core.partition.ClientSplit``) is copied
-    onto ``device``."""
+    onto ``device``, and a list of per-client DataSources becomes
+    :class:`SourceClients` on ``device``."""
+    if isinstance(clients, SourceClients):
+        return SourceClients(clients.sources, device)
+    if is_source_list(clients):
+        return SourceClients(clients, device)
     if isinstance(clients, SplitClients):
         data, mask = clients.data.to(device), clients.mask.to(device)
         if data is clients.data and mask is clients.mask:
@@ -130,8 +190,9 @@ def make_backend(clients, device) -> SplitClients:
     if all(hasattr(clients, f) for f in ("data", "mask", "sizes")):
         from repro_torch.convert import split_to_clients
         return split_to_clients(clients, device)
-    raise TypeError(f"federated clients must be a ClientSplit or "
-                    f"SplitClients, got {type(clients).__name__}")
+    raise TypeError(f"federated clients must be a ClientSplit, "
+                    f"SplitClients or a non-empty list of DataSources, got "
+                    f"{type(clients).__name__}")
 
 
 # ----------------------------------------------------------------------

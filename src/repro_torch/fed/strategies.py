@@ -1,5 +1,6 @@
 """The iterative federated baselines as strategies on the federation runtime
-(port of ``repro/fed/strategies.py``, resident split arm).
+(port of ``repro/fed/strategies.py``), over a padded split or a list of
+per-client DataSources.
 
 - :class:`FedEMStrategy`: iterative federated EM after Tian et al.: each
   round every participating client runs ``local_epochs`` local EM steps
@@ -21,11 +22,12 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.config import FitConfig, derive_seed
+from repro_torch.core.config import FitConfig, derive_seed, is_source_list
 from repro_torch.core.dem import (DEMStrategy, _broadcast, _resolve_init,
                                   max_separated_centers)
 from repro_torch.core.em import e_step_stats, m_step
 from repro_torch.core.gmm import GMM
+from repro_torch.data.sources import DataSource
 from repro_torch.core.kmeans import federated_kmeans, lloyd_round_stats
 from repro_torch.fed.cohort import make_sampler
 from repro_torch.fed.ledger import (CommStats, RoundPayload, dtype_itemsize,
@@ -123,8 +125,10 @@ class FedEMStrategy(DEMStrategy):
         """``local_epochs`` EM steps of a batch of cohort members from the
         broadcast model (each member M-steps on its own statistics between
         E-steps); the last epoch's statistics are the uplink. One
-        ``estep_stats`` launch an epoch on the fused backend."""
-        gmm = _broadcast(state.gmm, x.shape[0])
+        ``estep_stats`` launch an epoch on the fused backend (a block, on a
+        source client)."""
+        gmm = (state.gmm if isinstance(x, DataSource)
+               else _broadcast(state.gmm, x.shape[0]))
         stats = e_step_stats(gmm, x, w, self.backend, self.chunk)
         for _ in range(self.local_epochs - 1):
             gmm = m_step(stats, state.reg_covar)
@@ -143,15 +147,18 @@ def fedem_cfg(seed: int, clients, config: FitConfig, k: int,
               participation: float = 1.0, local_epochs: int = 1,
               cohort: str = "cyclic", cohort_seed: int = 0,
               stragglers=None) -> FedEMResult:
-    """Run FedEM on a padded client split: the cfg-core behind
-    ``repro_torch.api.FedEM``. ``participation < 1`` installs the round
-    loop's cohort sampler (``cohort``: "cyclic" or "uniform" from
-    ``cohort_seed``); at full participation there is none, and the run is
-    DEM's. ``stragglers`` drops each round's slowest arrivals."""
-    n_clients = clients.data.shape[0]
+    """Run FedEM on a padded client split or a list of per-client
+    DataSources: the cfg-core behind ``repro_torch.api.FedEM``.
+    ``participation < 1`` installs the round loop's cohort sampler
+    (``cohort``: "cyclic" or "uniform" from ``cohort_seed``); at full
+    participation there is none, and the run is DEM's. ``stragglers`` drops
+    each round's slowest arrivals."""
+    sources = is_source_list(clients)
+    n_clients = len(clients) if sources else clients.data.shape[0]
     strategy = FedEMStrategy(
         k=k, covariance_type=config.covariance_type, backend=config.backend,
-        chunk=config.resolve_chunk(), init=_resolve_init(config.init),
+        chunk=config.resolve_chunk(sources),
+        init=_resolve_init(config.init, sources),
         tol=config.resolve_tol("em"), reg_covar=config.reg_covar,
         participation=float(participation), local_epochs=int(local_epochs),
         n_clients=n_clients)
@@ -209,6 +216,11 @@ class FedKMeansStrategy:
         if self.init == "separated":
             centers = max_separated_centers(seed, self.k, backend.dim,
                                             device=backend.device)
+        elif backend.kind == "sources":
+            centers = federated_kmeans(seed, backend.sources, self.k,
+                                       chunk_size=self.chunk,
+                                       assign_backend=self.assign_backend,
+                                       device=backend.device)
         else:
             centers = federated_kmeans(seed, backend.data, self.k,
                                        client_weights=backend.mask,
@@ -283,12 +295,14 @@ def _resolve_fedkmeans_init(init: str) -> str:
 
 def fed_kmeans_cfg(seed: int, clients, config: FitConfig,
                    k: int) -> FedKMeansResult:
-    """Run iterative federated k-means on a padded client split: the
-    cfg-core behind ``repro_torch.api.FedKMeans``. ``tol`` and ``max_iter``
-    resolve through the "kmeans" defaults."""
+    """Run iterative federated k-means on a padded client split or a list
+    of per-client DataSources: the cfg-core behind
+    ``repro_torch.api.FedKMeans``. ``tol`` and ``max_iter`` resolve through
+    the "kmeans" defaults."""
     device = config.resolve_device()
     strategy = FedKMeansStrategy(
-        k=k, assign_backend=config.backend, chunk=config.resolve_chunk(),
+        k=k, assign_backend=config.backend,
+        chunk=config.resolve_chunk(is_source_list(clients)),
         init=_resolve_fedkmeans_init(config.init),
         tol=config.resolve_tol("kmeans"))
     return run_rounds(strategy, clients, seed=seed, device=device,

@@ -127,9 +127,11 @@ def test_facade_validation():
         api.FedGenGMM(k_global=3, device="cpu")
     with pytest.raises(ValueError, match="k_global"):
         api.FedGenGMM(k_clients=3, device="cpu")
-    with pytest.raises(TypeError):
-        api.FedGenGMM(k_clients=3, k_global=3, synthetic="source",
+    with pytest.raises(ValueError, match="synthetic"):
+        api.FedGenGMM(k_clients=3, k_global=3, synthetic="disk",
                       device="cpu")
+    assert api.FedGenGMM(k_clients=3, k_global=3, synthetic="source",
+                         device="cpu").synthetic == "source"
     with pytest.raises(ValueError, match="k-means"):
         api.FedGenGMM(k_clients=3, k_global=3, init="pilot", device="cpu")
 

@@ -425,3 +425,120 @@ class TestServingOnCard:
         published = ModelStore(tmp_path).latest()
         assert published.gmm.means.device.type == "cuda"
         np.testing.assert_array_equal(published.gmm.covs.cpu().numpy(), var)
+
+
+@pytest.mark.cuda
+class TestOutOfCoreOnCard:
+    """The out-of-core path on the card: the pinned copy-stream prefetch
+    gives the inline loop's bits, every source engine launches its kernel
+    once a block, and a large synthetic fit holds no O(N) tensor."""
+
+    CHUNK = 4096
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+
+    @pytest.fixture
+    def rows_file(self, tmp_path):
+        rng = np.random.default_rng(3)
+        x = (rng.normal(0, 1, (20_000, 24))
+             + rng.integers(0, 3, (20_000, 1)) * 4.0).astype(np.float32)
+        np.save(tmp_path / "rows.npy", x)
+        return tmp_path / "rows.npy", x
+
+    @staticmethod
+    def _model(x, k=5):
+        mu = torch.as_tensor(x[:k], device="cuda")
+        var = torch.as_tensor(np.tile(x.var(0), (k, 1)), device="cuda")
+        return GMM(torch.full((k,), 1.0 / k, device="cuda"), mu, var)
+
+    def test_prefetch_depths_give_the_same_blocks_and_fits(self, rows_file,
+                                                           monkeypatch):
+        from repro_torch.data import sources
+        from repro_torch.data.sources import (NpyFileSource,
+                                              SyntheticGMMSource,
+                                              prefetch_blocks)
+        path, x = rows_file
+        g0 = self._model(x)
+        for src in (NpyFileSource(path), SyntheticGMMSource(
+                g0, 50_000, seed=1, cache_rows=0)):
+            pairs = {d: [(b.clone(), m.clone()) for b, m in prefetch_blocks(
+                src, self.CHUNK, depth=d, device="cuda")] for d in (0, 2)}
+            assert len(pairs[0]) == len(pairs[2]) == src.num_blocks(
+                self.CHUNK)
+            for (b0, m0), (b2, m2) in zip(pairs[0], pairs[2]):
+                assert b0.is_cuda and b2.is_cuda
+                assert torch.equal(b0, b2) and torch.equal(m0, m2)
+            fits = {}
+            for depth in (0, 2):
+                monkeypatch.setattr(sources, "PREFETCH_DEPTH", depth)
+                fits[depth] = em.fit_gmm_cfg(
+                    0, src, 5, FitConfig(chunk_size=self.CHUNK, max_iter=8,
+                                         tol=0.0), init_gmm=g0)
+            for a, b in zip((fits[0].gmm.weights, fits[0].gmm.means,
+                             fits[0].gmm.covs, fits[0].log_likelihood),
+                            (fits[2].gmm.weights, fits[2].gmm.means,
+                             fits[2].gmm.covs, fits[2].log_likelihood)):
+                assert torch.equal(a, b)
+
+    def test_source_engines_launch_their_kernels(self, rows_file):
+        from repro_torch.core import kmeans
+        from repro_torch.data.sources import NpyFileSource
+        path, x = rows_file
+        src = NpyFileSource(path)
+        blocks = src.num_blocks(self.CHUNK)
+        g0 = self._model(x)
+
+        def launched(fn):
+            before = (estep_stats.launches, kmeans_assign.sweep_launches,
+                      kmeans_assign.launches, gmm_logpdf.log_prob_launches)
+            fn()
+            torch.cuda.synchronize()
+            after = (estep_stats.launches, kmeans_assign.sweep_launches,
+                     kmeans_assign.launches, gmm_logpdf.log_prob_launches)
+            return tuple(a - b for a, b in zip(after, before))
+
+        assert launched(lambda: em.e_step_stats(
+            g0, src, chunk_size=self.CHUNK)) == (blocks, 0, 0, 0)
+        assert launched(lambda: kmeans.lloyd_round_stats(
+            g0.means, src, chunk_size=self.CHUNK)) == (0, blocks, 0, 0)
+        assert launched(lambda: em.score_streaming(
+            g0, src, chunk_size=self.CHUNK)) == (0, 0, 0, blocks)
+        est, sweep, assign, _ = launched(lambda: em.init_from_kmeans(
+            0, src, 5, chunk_size=self.CHUNK))
+        assert (est, assign) == (0, blocks) and sweep > blocks
+
+    def test_a_2_20_row_synthetic_fit_holds_no_o_n_tensor(self):
+        """Every tensor the fit creates is at most 4 blocks long, and the
+        peak memory above the start stays under 64 blocks' worth."""
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from repro_torch.api import GMMEstimator
+        from repro_torch.data.sources import SyntheticGMMSource
+
+        chunk = 65536
+
+        class NoLargeTensors(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                for t in (out if isinstance(out, (list, tuple)) else (out,)):
+                    if isinstance(t, torch.Tensor) and t.ndim:
+                        assert max(t.shape) <= 4 * chunk, (func, t.shape)
+                return out
+
+        truth = GMM(torch.tensor([0.4, 0.6], device="cuda"),
+                    torch.tensor([[-4.0] * 8, [4.0] * 8], device="cuda"),
+                    torch.full((2, 8), 0.3, device="cuda"))
+        src = SyntheticGMMSource(truth, 1 << 20, seed=2)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with NoLargeTensors():
+            res = GMMEstimator(2, chunk_size=chunk, max_iter=5).fit(
+                src, seed=0).result_
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        assert peak < 64 * chunk * 8 * 4, peak
+        got = np.sort(res.gmm.means[:, 0].cpu().numpy())
+        np.testing.assert_allclose(got, [-4.0, 4.0], atol=0.1)
