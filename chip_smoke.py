@@ -77,20 +77,42 @@ Phases (each failure makes the exit code non-zero):
      and 2, at chunks 65,536 and 8,192, bit-identical to each other and to
      an ``ArraySource`` on the card, with the wall a pass, host-to-device
      GB/s and the idle share of a profiled pass (busy and wall of one run;
-     a profiler that fails or sees no device time fails the phase).
+     a profiler that fails or sees no device time fails the phase);
+ 10. uplink transforms and async rounds on phase 3's data: (a)
+     ``FedGenGMM(dp=DPConfig(eps))`` at eps 0.25, 1 and 4 (quality,
+     ``epsilon_spent``, every released client model a valid GMM and the
+     bits of its own round-0 stream, over the split and over 20
+     ``ArraySource``s); (b) DEM (fed-kmeans) and FedEM under
+     ``GaussianDP(1, rounds=30)``, one ``estep_stats`` a round a local
+     epoch; (c) ``StochasticQuantize(8)`` at one byte an element,
+     ``PairwiseMask`` bit-identical to no transform (DEM, FedEM), one
+     masked round's int32 channel equal to the unmasked lattice sum,
+     ``Compose`` spending as ``GaussianDP``, FedKMeans quantized, and the
+     round wall of DEM under each transform; (d) ``run_async`` with
+     buffer = cohort and no lookahead bit-identical to ``run_rounds`` on
+     the split, on 20 ArraySources and with a ``CyclicSampler``; (e) the
+     comm bench's async knobs over 1,000 Dirichlet(0.5) clients, 400
+     buffered combines against 40 synchronous rounds from one state, with
+     the staleness histogram, final quality, wall and idle share; (f) DEM
+     over 20 single-block ``.npy`` clients and over 4 clients of 2^20
+     rows in 16 blocks each, serially and on a ``ClientExecutor`` of one
+     and of four workers, bit-identical, the walls in turns. Phase 2 also
+     holds ``estep_stats`` at (e)'s batches (16 and 64 clients padded to
+     the largest client, each under its own 0/1 mask).
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``. A kernel's ``launches`` there is phase
 3's main-path count; ``launches_by_path`` adds phase 8's serving runs (the
 wrapper's launches: a warm-up and a capture at each install, since a replay
-does not call it) and phase 9 (a)'s out-of-core run with its scoring over
-sources, and ``serving_device_launches`` the kernel's launches
+does not call it), phase 9 (a)'s out-of-core run with its scoring over
+sources and phase 10's runs (``uplink_async``), and ``serving_device_launches`` the kernel's launches
 that the profiler saw on the device in phase 8's traced runs (one a
 micro-batch). Without CUDA, or without the repository beside it, the
 script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -325,12 +347,14 @@ def phase_kernels(dev, report):
               "log_prob at chunk 4096 or None differs from the kernel")
 
     def estep_case(c_, n, d, k, seed, valid=None):
-        """Uniform row weights, or with ``valid`` a source block's 0/1 mask:
-        ``valid`` leading ones, then a zero-weight pad."""
+        """Uniform row weights, or with ``valid`` a padded block's 0/1 mask:
+        ``valid`` leading ones (one count, or one per client), then a
+        zero-weight pad."""
         rng = np.random.default_rng(seed)
         x, mu, var, lw = model_inputs(rng, n, d, k, dev, batch=c_)
-        w = (rng.uniform(0, 1, (c_, n)) if valid is None
-             else (np.arange(n) < valid)[None].repeat(c_, 0))
+        w = (rng.uniform(0, 1, (c_, n)) if valid is None else
+             np.broadcast_to(np.arange(n) < np.reshape(valid, (-1, 1)),
+                             (c_, n)).astype(np.float32))
         w = torch.as_tensor(w, dtype=torch.float32, device=dev)
         a, b, c = pack_params(mu, var, lw)
         got = estep_stats.estep_stats(x, w, a, b, c)
@@ -459,6 +483,12 @@ def phase_kernels(dev, report):
                               # source's 0/1 mask, full and ragged
                               *(estep_case(1, n, D, K, 50 + i, valid=v)
                                 for i, (n, v) in enumerate(OOC_ESTEP_BLOCKS)))
+    # phase 10 (e)'s batches: the 1,000-client split padded to its largest
+    # client, each client under its own 0/1 mask
+    width, batches = async_estep_batches()
+    errs["estep_stats"] = max(errs["estep_stats"], *(
+        estep_case(len(v), width, D, K, 500 + i, valid=v)
+        for i, v in enumerate(batches)))
     errs["kmeans_assign"] = max(assign_case(CLIENTS, N_PAD, D, K, 4)[0],
                                 assign_case(1, N_SYNTH, D, K, 5)[0],
                                 # phase 9's label pass: one 2-D block
@@ -474,6 +504,10 @@ def phase_kernels(dev, report):
     _, idx, eidx = assign_case(1, 4096, D, 16, 7, centers=dup)
     check(bool(torch.all(idx < 8)) and torch.equal(idx, eidx),
           "kmeans_assign does not resolve ties to the first index")
+    log(f"phase 2: estep_stats held at phase 10 (e)'s {len(batches)} "
+        f"batches: {sorted({len(v) for v in batches})} clients x {width} "
+        f"padded rows, {min(int(v.min()) for v in batches)}.."
+        f"{max(int(v.max()) for v in batches)} valid rows a client")
     log(f"phase 2: kernels match their plain versions; main-path max abs "
         f"err {errs}; gmm_log_prob, estep_stats and kmeans_sweep_stats "
         f"bit-reproducible; gmm_log_prob rows the same bits alone, in "
@@ -492,11 +526,10 @@ def phase_main_path(dev, report):
                                  log_prob, score)
     from repro_torch.core.metrics import auc_pr
     from repro_torch.core.partition import partition
-    from repro_torch.data.datasets import mnist_like
     from repro_torch.fed.ledger import gmm_payload_floats
 
     t0 = time.perf_counter()
-    ds = mnist_like(np.random.default_rng(0), n_train=N_TRAIN)
+    ds = mnist_data()
     split = partition(np.random.default_rng(0), ds.x_train, ds.y_train,
                       CLIENTS, "dirichlet", 0.5)
     log(f"phase 3: data {ds.x_train.shape}, split {split.data.shape}, client "
@@ -725,6 +758,18 @@ def phase_times(dev, report):
         log(f"phase 5: {name}: {ks[0]:.5f} / {ks[1]:.5f} ms (plain "
             f"{ps[0]:.5f} / {ps[1]:.5f} ms, bound {b_ms:.5f} ms by {b_by}; "
             f"eager call {cuda_ms(kern):.5f} ms)")
+    # the one PyTorch call that computes gmm_logpdf's (N, K) output: cuBLAS
+    # addmm on the pre-built [x*x, x] and [A; B] with c as the bias, TF32
+    # off (kernel and library call in turns)
+    xcat = torch.cat([x * x, x], dim=1)
+    wcat = torch.cat([a, b], dim=0)
+    close(torch.addmm(c, xcat, wcat), gmm_logpdf.gmm_logpdf(x, a, b, c),
+          2e-4, 2e-4, "torch.addmm against gmm_logpdf")
+    ks, ls = turns(rows["gmm_logpdf"][0], lambda: torch.addmm(c, xcat, wcat))
+    out[0]["library_ms"] = min(ls)
+    log(f"phase 5: gmm_logpdf at ({N_TRAIN}, {D}, {K}): {ks[0]:.5f} / "
+        f"{ks[1]:.5f} ms; torch.addmm on pre-built [x*x, x], [A; B] + c "
+        f"(TF32 off) {ls[0]:.5f} / {ls[1]:.5f} ms")
     ks, ps = turns(rows["kmeans_sweep_stats"][0],
                    lambda: onehot_sweep(xe, we, ct, c2))
     out[-1]["composite_ms"] = min(ps)
@@ -2061,6 +2106,495 @@ def phase_out_of_core(dev, report):
     log(f"phase 9: took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ----------------------------------------------------------------------
+# Phase 10: uplink transforms and async rounds
+# ----------------------------------------------------------------------
+
+DP_EPSILONS = (0.25, 1.0, 4.0)     # BENCH_comm.json's privacy epsilons
+DP_DELTA = 1e-5
+DP_ROUNDS = 30                     # the iterative arms' round budget
+TIMED_ROUNDS = 10                  # (c): rounds of one timed DEM run
+# (e): benchmarks/fed_bench.py's async knobs at MNIST width
+ASYNC_CLIENTS, ASYNC_COHORT, ASYNC_BUFFER = 1000, 64, 16
+ASYNC_LOOKAHEAD, ASYNC_ALPHA = 240, 0.5
+ASYNC_COMBINES, SYNC_ROUNDS = 400, 40
+EXECUTOR_WORKERS = 4
+# (f)'s second workload: clients whose step is many blocks out of a file
+EXECUTOR_FILE_CLIENTS, EXECUTOR_FILE_ROWS, EXECUTOR_FILE_ROUNDS = \
+    4, 1 << 20, 3
+
+
+@functools.lru_cache(maxsize=None)
+def mnist_data():
+    """Phase 3's data: mnist_like with 60,000 training rows from seed 0."""
+    import numpy as np
+    from repro_torch.data.datasets import mnist_like
+    return mnist_like(np.random.default_rng(0), n_train=N_TRAIN)
+
+
+@functools.lru_cache(maxsize=None)
+def async_population():
+    """(e)'s padded split: the 60,000 rows over 1,000 Dirichlet(0.5)
+    clients."""
+    import numpy as np
+    from repro_torch.core.partition import partition
+    ds = mnist_data()
+    return partition(np.random.default_rng(0), ds.x_train, ds.y_train,
+                     ASYNC_CLIENTS, "dirichlet", 0.5)
+
+
+def async_estep_batches():
+    """(padded rows, [valid rows of each client of a batch]) of (e)'s E-step
+    launches over one cycle of CyclicSampler(1000, 64): every 64-client
+    cohort (the sync arm) and its 16-client buffer groups (the async
+    arm)."""
+    from repro_torch.fed import CyclicSampler
+    pop = async_population()
+    sampler = CyclicSampler(ASYNC_CLIENTS, ASYNC_COHORT)
+    batches = []
+    for rnd in range(-(-ASYNC_CLIENTS // ASYNC_COHORT)):
+        ids = sampler.cohort(rnd)
+        batches.append(pop.sizes[ids])
+        batches += [pop.sizes[ids[i:i + ASYNC_BUFFER]]
+                    for i in range(0, ASYNC_COHORT, ASYNC_BUFFER)]
+    return pop.data.shape[1], batches
+
+
+def synced(fn):
+    """(result, wall s) of ``fn()``, the wall ended by a device sync."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def quality(gmm, report, cfg):
+    """(avg log-likelihood over the training rows, AUC-PR of phase 3's
+    anomaly rows) of a global model."""
+    import numpy as np
+    from repro_torch.api import log_prob, score
+    from repro_torch.core.metrics import auc_pr
+    ds = report["ds"]
+    labels = np.r_[np.zeros(len(ds.x_test_in)), np.ones(len(ds.x_test_ood))]
+    ll = float(score(gmm, ds.x_train, config=cfg))
+    auc = auc_pr(-log_prob(gmm, report["requests"], cfg).cpu().numpy(),
+                 labels)
+    check(np.isfinite(ll) and 0 <= auc <= 1, "non-finite quality")
+    return ll, auc
+
+
+def round_launches(clients, kern, per_round, rounds, what, post=0):
+    """Every round of a counted run launched ``kern`` ``per_round``
+    times."""
+    per = [c[kern] for c in clients.per_call]
+    clients.per_call = []
+    check(len(per) == rounds + post,
+          f"{what}: {len(per)} client reductions for {rounds} rounds")
+    check(all(p == per_round for p in per[:rounds]),
+          f"{what}: {kern} launches a round {sorted(set(per))}, not "
+          f"{per_round}")
+    return per
+
+
+def uplink_dp_one_shot(dev, report, clients):
+    """(a) FedGenGMM(dp=DPConfig(eps)) at the privacy epsilons: quality,
+    epsilon spent, a valid released GMM per client, and each release the
+    client's own round-0 stream over the split and over ArraySources."""
+    import numpy as np
+    import torch
+    from repro_torch.api import DPConfig, FedGenGMM, FitConfig
+    from repro_torch.data.sources import ArraySource
+    from repro_torch.fed.transforms import VAR_MAX, VAR_MIN, uplink_key
+
+    cfg = FitConfig(device=dev.type)
+    split = report["split"]
+
+    def released_from_own_stream(res, dp, what):
+        t = dp.transform()
+        members = np.arange(len(res.local_gmms))
+        for i, (r, g) in enumerate(zip(res.local_results, res.local_gmms)):
+            check(bool(torch.isclose(g.weights.sum(), torch.ones(
+                (), device=dev), atol=1e-5)) and bool((g.weights > 0).all()),
+                f"(a) {what}: client {i}'s released weights leave the "
+                f"simplex")
+            check(bool(((g.means >= 0) & (g.means <= 1)).all()),
+                  f"(a) {what}: client {i}'s released means leave [0, 1]")
+            check(bool(((g.covs >= VAR_MIN) & (g.covs <= VAR_MAX)).all()),
+                  f"(a) {what}: client {i}'s released variances leave "
+                  f"[{VAR_MIN}, {VAR_MAX}]")
+            want, _ = t.apply(uplink_key(t, 0), t.traced(),
+                              (r.gmm, float(split.sizes[i])), i, members)
+            check(same_bits(g, want), f"(a) {what}: client {i}'s release "
+                  f"is not its own round-0 stream")
+
+    for eps in DP_EPSILONS:
+        dp = DPConfig(epsilon=eps, delta=DP_DELTA)
+        res, wall = synced(lambda: FedGenGMM(
+            k_clients=K, k_global=K, h=H, dp=dp, config=cfg).run(
+                clients, seed=0))
+        ll, auc = quality(res.global_gmm, report, cfg)
+        check(res.comm.epsilon_spent == eps and res.comm.rounds == 1,
+              f"(a) epsilon_spent {res.comm.epsilon_spent} != {eps}")
+        released_from_own_stream(res, dp, f"split, eps {eps}")
+        log(f"phase 10 (a): FedGenGMM dp eps={eps}: avg loglik {ll:.6f}, "
+            f"AUC-PR {auc:.6f}, epsilon_spent {res.comm.epsilon_spent}, "
+            f"wall {wall:.3f} s (no DP, phase 3: {report['ll']:.6f}, "
+            f"{report['auc']:.6f})")
+    dp = DPConfig(epsilon=1.0, delta=DP_DELTA)
+    shards = [ArraySource(torch.as_tensor(
+        split.data[c, :int(split.sizes[c])], device=dev))
+        for c in range(CLIENTS)]
+    res, wall = synced(lambda: FedGenGMM(
+        k_clients=K, k_global=K, h=H, dp=dp, synthetic="resident",
+        config=cfg).run(shards, seed=0))
+    released_from_own_stream(res, dp, "ArraySources, eps 1.0")
+    ll, auc = quality(res.global_gmm, report, cfg)
+    log(f"phase 10 (a): FedGenGMM dp eps=1.0 over {CLIENTS} ArraySources: "
+        f"avg loglik {ll:.6f}, AUC-PR {auc:.6f}, wall {wall:.3f} s; every "
+        f"client's release over the split and over the sources is the "
+        f"bits of its round-0 stream on its own model")
+
+
+def uplink_dp_depletion(dev, report, clients):
+    """(b) DEM (fed-kmeans init) and FedEM (participation 0.5, 2 local
+    epochs) under GaussianDP(epsilon=1, rounds=30): rounds, epsilon spent,
+    quality; estep_stats launches once a round a local epoch."""
+    from repro_torch.api import DEM, FedEM, FitConfig
+    from repro_torch.fed import GaussianDP
+
+    cfg = FitConfig(device=dev.type, max_iter=DP_ROUNDS)
+    t = GaussianDP(epsilon=1.0, delta=DP_DELTA, rounds=DP_ROUNDS, seed=0)
+    for name, make, epochs in (
+            ("DEM fed-kmeans", lambda: DEM(K, init="fed-kmeans",
+                                           transform=t, config=cfg), 1),
+            ("FedEM p=0.5 e=2", lambda: FedEM(
+                K, participation=0.5, local_epochs=2, transform=t,
+                config=cfg), 2)):
+        clients.per_call = []
+        res, wall = synced(lambda: make().run(clients, seed=0))
+        rounds = res.comm.rounds
+        round_launches(clients, "estep_stats", epochs, rounds, f"(b) {name}")
+        check(res.comm.epsilon_spent == rounds * (1.0 / DP_ROUNDS),
+              f"(b) {name}: epsilon_spent {res.comm.epsilon_spent}")
+        ll, auc = quality(res.global_gmm, report, cfg)
+        log(f"phase 10 (b): {name} under GaussianDP(1, rounds="
+            f"{DP_ROUNDS}): {rounds} rounds (converged {res.converged}, "
+            f"last round's loglik {float(res.log_likelihood):.6f}), "
+            f"epsilon_spent {res.comm.epsilon_spent:.6f} (= {rounds} x "
+            f"1/{DP_ROUNDS}), avg loglik {ll:.6f}, AUC-PR {auc:.6f}, wall "
+            f"{wall:.3f} s; estep_stats {epochs} a round")
+
+
+def uplink_quantize_mask(dev, report, clients):
+    """(c) StochasticQuantize(8) at one byte an element, PairwiseMask
+    bit-identical to no transform for DEM and FedEM, one masked round's
+    int32 channel against the unmasked lattice sum, Compose spending like
+    GaussianDP alone, FedKMeans under quantization, and the round wall of
+    DEM under each transform."""
+    import numpy as np
+    import torch
+    from repro_torch.api import DEM, FedEM, FedKMeans, FitConfig
+    from repro_torch.core.dem import DEMStrategy
+    from repro_torch.core.em import wrap_int32
+    from repro_torch.fed import (Compose, GaussianDP, PairwiseMask,
+                                 StochasticQuantize, run_rounds)
+    from repro_torch.fed.transforms import uplink_key
+
+    cfg = FitConfig(device=dev.type)
+    base = DEM(K, config=cfg).run(clients, seed=0)
+    q8 = DEM(K, transform=StochasticQuantize(8), config=cfg).run(clients,
+                                                                 seed=0)
+    check(q8.comm.uplink_itemsize == 1
+          and q8.comm.uplink_bytes == q8.comm.uplink_floats
+          and q8.comm.downlink_bytes == 4 * q8.comm.downlink_floats,
+          f"(c) quantized ledger {q8.comm}")
+    ll_q8, _ = quality(q8.global_gmm, report, cfg)
+    masked = DEM(K, transform=PairwiseMask(), config=cfg).run(clients,
+                                                              seed=0)
+    check(same_bits(masked.global_gmm, base.global_gmm)
+          and masked.comm.rounds == base.comm.rounds,
+          "(c) masked DEM differs from DEM")
+    kw = dict(participation=0.5, local_epochs=2, config=cfg)
+    f_base = FedEM(K, **kw).run(clients, seed=0)
+    f_mask = FedEM(K, transform=PairwiseMask(), **kw).run(clients, seed=0)
+    check(same_bits(f_mask.global_gmm, f_base.global_gmm),
+          "(c) masked FedEM differs from FedEM")
+    log(f"phase 10 (c): DEM {base.comm.rounds} rounds; StochasticQuantize(8)"
+        f" {q8.comm.rounds} rounds, uplink {q8.comm.uplink_bytes} bytes for "
+        f"{q8.comm.uplink_floats} elements (no transform "
+        f"{base.comm.uplink_bytes} bytes), avg loglik {ll_q8:.6f}; "
+        f"PairwiseMask bit-identical to no transform for DEM "
+        f"({masked.comm.rounds} rounds) and FedEM ({f_mask.comm.rounds} "
+        f"rounds)")
+
+    # one masked round on the card: the summed int32 channel against the
+    # sum of the clients' unmasked lattices
+    strat = DEMStrategy(k=K)
+    state0 = strat.init_state(0, clients)
+    t = PairwiseMask(seed=1)
+    total = clients.reduce_clients(strat.local_step, state0, transform=t,
+                                   tparams=(), tkey=uplink_key(t, 0))
+    idx = torch.arange(CLIENTS, device=dev)
+    per = strat.local_step(state0, clients.data, clients.mask, idx)
+    for f, leaf in enumerate(total["secagg"]):
+        want = wrap_int32(torch.sum(t._lattice(per[f]).to(torch.int64),
+                                    dim=0))
+        check(leaf.dtype == torch.int32 and torch.equal(leaf, want),
+              f"(c) the masked channel's leaf {f} differs from the "
+              f"unmasked lattice sum")
+    clients.per_call = []
+    log(f"phase 10 (c): one masked round over {CLIENTS} clients "
+        f"({CLIENTS * (CLIENTS - 1) // 2} pair streams a leaf): the summed "
+        f"int32 channel equals the unmasked lattice sum exactly")
+
+    dp = GaussianDP(epsilon=1.0, delta=DP_DELTA, rounds=DP_ROUNDS)
+    comp = Compose((dp, StochasticQuantize(8), PairwiseMask()))
+    c_res = DEM(K, transform=comp, config=cfg.replace(
+        max_iter=DP_ROUNDS)).run(clients, seed=0)
+    check(c_res.comm.epsilon_spent == c_res.comm.rounds * (1.0 / DP_ROUNDS)
+          and c_res.comm.uplink_itemsize == 4,
+          f"(c) Compose ledger {c_res.comm}")
+    log(f"phase 10 (c): Compose(GaussianDP, StochasticQuantize(8), "
+        f"PairwiseMask) {c_res.comm.rounds} rounds, epsilon_spent "
+        f"{c_res.comm.epsilon_spent:.6f} (as GaussianDP alone), uplink "
+        f"itemsize {c_res.comm.uplink_itemsize}")
+
+    clients.per_call = []
+    fk = FedKMeans(K, transform=StochasticQuantize(8), config=cfg).run(
+        clients, seed=0)
+    round_launches(clients, "kmeans_sweep_stats", 1, fk.comm.rounds,
+                   "(c) FedKMeans, StochasticQuantize(8)", post=1)
+    log(f"phase 10 (c): FedKMeans under StochasticQuantize(8): "
+        f"{fk.comm.rounds} rounds, inertia {float(fk.inertia):.6f}, "
+        f"kmeans_sweep_stats once a round")
+
+    # the round wall: DEM from one init at tol 0, TIMED_ROUNDS rounds
+    walls = {}
+    strat0 = DEMStrategy(k=K, tol=0.0)
+    for name, tr in (("none", None), ("GaussianDP", dp),
+                     ("StochasticQuantize(8)", StochasticQuantize(8)),
+                     ("PairwiseMask", PairwiseMask()),
+                     ("Compose", comp), ("none", None)):
+        clients.per_call = []
+        res, wall = synced(lambda: run_rounds(
+            strat0, clients, device=dev, state0=state0,
+            max_rounds=TIMED_ROUNDS, transform=tr))
+        round_launches(clients, "estep_stats", 1, TIMED_ROUNDS,
+                       f"(c) timed DEM, {name}")
+        walls.setdefault(name, []).append(wall / TIMED_ROUNDS * 1e3)
+    report["uplink_round_ms"] = walls
+    log("phase 10 (c): DEM round wall (ms, " + str(TIMED_ROUNDS)
+        + " rounds from one init, synchronized): " + "; ".join(
+            f"{n} {' / '.join(f'{w:.3f}' for w in ws)}"
+            for n, ws in walls.items()))
+
+
+def uplink_async_sync_equivalent(dev, report, clients):
+    """(d) run_async(buffer = cohort, lookahead = 0) against run_rounds,
+    bit for bit, on the split, on 20 ArraySources and with a
+    CyclicSampler; its staleness histogram all zeros."""
+    import torch
+    from repro_torch.core.dem import DEMStrategy
+    from repro_torch.data.sources import ArraySource
+    from repro_torch.fed import CyclicSampler, run_async, run_rounds
+
+    split = report["split"]
+    strat = DEMStrategy(k=K, tol=0.0)
+    state0 = strat.init_state(0, clients)
+    shards = [ArraySource(torch.as_tensor(
+        split.data[c, :int(split.sizes[c])], device=dev))
+        for c in range(CLIENTS)]
+    for what, cl, sampler in (
+            ("the split", clients, None),
+            (f"{CLIENTS} ArraySources", shards, None),
+            ("the split, CyclicSampler(20, 10)", clients,
+             CyclicSampler(CLIENTS, 10))):
+        kw = dict(device=dev, state0=state0, max_rounds=TIMED_ROUNDS,
+                  sampler=sampler)
+        rs, t_sync = synced(lambda: run_rounds(strat, cl, **kw))
+        ra, t_async = synced(lambda: run_async(strat, cl, **kw))
+        clients.per_call = []
+        m = CLIENTS if sampler is None else sampler.cohort_size
+        check(same_bits(rs.global_gmm, ra.global_gmm)
+              and rs.n_rounds == ra.n_rounds,
+              f"(d) run_async differs from run_rounds on {what}")
+        check(ra.comm.staleness == ((0, ra.n_rounds * m),),
+              f"(d) staleness {ra.comm.staleness} on {what}")
+        log(f"phase 10 (d): run_async(buffer={m}, lookahead=0) on {what}: "
+            f"bit-identical to run_rounds over {ra.n_rounds} rounds, "
+            f"staleness {ra.comm.staleness}; wall {t_async:.3f} s against "
+            f"{t_sync:.3f} s")
+
+
+def uplink_async_buffered(dev, report):
+    """(e) the comm bench's async knobs at MNIST width: 1,000 Dirichlet(0.5)
+    clients, DEM separated at tol 0 from one state0, CyclicSampler(1000,
+    64); buffered (16 + 240 in flight, alpha 0.5) 400 combines against the
+    synchronous arm's 40 rounds."""
+    import numpy as np
+    from repro_torch.api import FitConfig
+    from repro_torch.convert import split_to_clients
+    from repro_torch.core.dem import DEMStrategy
+    from repro_torch.fed import CyclicSampler, run_async
+
+    cfg = FitConfig(device=dev.type)
+    clients = split_to_clients(async_population(), dev)
+    strat = DEMStrategy(k=K, init="separated", tol=0.0)
+    state0 = strat.init_state(0, clients)
+    sampler = CyclicSampler(ASYNC_CLIENTS, ASYNC_COHORT)
+    arms = {"sync": (ASYNC_COHORT, 0, SYNC_ROUNDS),
+            "async": (ASYNC_BUFFER, ASYNC_LOOKAHEAD, ASYNC_COMBINES)}
+    out = {}
+    for name, (buffer, lookahead, rounds) in arms.items():
+        seen = []
+
+        def run():
+            seen.clear()
+            return run_async(strat, clients, device=dev, state0=state0,
+                             max_rounds=rounds, sampler=sampler,
+                             buffer_size=buffer, lookahead=lookahead,
+                             staleness=ASYNC_ALPHA,
+                             progress=lambda v, s, st: seen.append(st))
+
+        before = kernel_counts()["estep_stats"]
+        res, wall = synced(run)
+        launches = kernel_counts()["estep_stats"] - before
+        busy, pwall, _ = profiled_busy(run)
+        ll, auc = quality(res.global_gmm, report, cfg)
+        check(res.n_rounds == rounds and launches == rounds,
+              f"(e) {name}: {res.n_rounds} combines, {launches} estep_stats "
+              f"launches for {rounds}")
+        comm = res.comm
+        log(f"phase 10 (e): {name} arm (buffer {buffer}, lookahead "
+            f"{lookahead}): {res.n_rounds} combines, staleness histogram "
+            f"{comm.staleness}, mean {comm.mean_staleness:.4f}; final avg "
+            f"loglik {ll:.6f}, AUC-PR {auc:.6f}; wall {wall:.3f} s "
+            f"({wall / rounds * 1e3:.3f} ms a combine); a profiled run: "
+            f"device busy {busy:.3f} ms of {pwall:.3f} ms (idle share "
+            f"{1 - busy / pwall:.4f}); estep_stats {launches}")
+        out[name] = (res, seen)
+    _, seen = out["async"]
+    k = ASYNC_LOOKAHEAD // ASYNC_BUFFER
+    steady = [s for st in seen[k + ASYNC_COHORT // ASYNC_BUFFER:] for s in st]
+    lo, hi = k, k + ASYNC_COHORT // ASYNC_BUFFER - 1
+    check(steady and min(steady) >= lo and max(steady) <= hi,
+          f"(e) steady-state staleness {min(steady)}..{max(steady)} outside "
+          f"[{lo}, {hi}]")
+    log(f"phase 10 (e): steady-state staleness {min(steady)}..{max(steady)}"
+        f", mean {np.mean(steady):.4f} (lookahead / buffer = {k}; a "
+        f"{ASYNC_COHORT}-client dispatch batch spans "
+        f"{ASYNC_COHORT // ASYNC_BUFFER} combines)")
+
+
+def executor_turns(dev, state0, srcs, rounds, what):
+    """DEM rounds over ``srcs``, serially and on
+    SourceClients(executor=ClientExecutor(n)) for one and four workers, in
+    turns (serial, 1, 4, 4, 1, serial): the same bits; the walls."""
+    from repro_torch.core.dem import DEMStrategy
+    from repro_torch.fed import ClientExecutor, SourceClients, run_rounds
+
+    strat = DEMStrategy(k=K, tol=0.0)
+    walls = {}
+    serial = None
+    with ClientExecutor(1) as one, \
+            ClientExecutor(EXECUTOR_WORKERS) as many:
+        pools = {"serial": None, "ClientExecutor(1)": one,
+                 f"ClientExecutor({EXECUTOR_WORKERS})": many}
+        order = list(pools)
+        for name in order + order[::-1]:
+            cl = SourceClients(srcs, dev, executor=pools[name])
+            res, wall = synced(lambda: run_rounds(
+                strat, cl, device=dev, state0=state0, max_rounds=rounds))
+            walls.setdefault(name, []).append(wall)
+            serial = serial or res
+            check(same_bits(res.global_gmm, serial.global_gmm),
+                  f"(f) {what}: {name}'s rounds differ from the serial "
+                  f"loop's")
+    log(f"phase 10 (f): {what}: DEM, {rounds} rounds, wall in turns: "
+        + "; ".join(f"{n} {' / '.join(f'{w:.3f}' for w in ws)} s"
+                    for n, ws in walls.items()) + "; all bit-identical")
+    return walls
+
+
+def uplink_executor(dev, report, workdir):
+    """(f) the client executor against the serial loop on two workloads:
+    phase 9 (a)'s 20 single-block .npy clients (a step is a few small
+    launches), and 4 clients of 2^20 rows each read from .npy files in
+    16 blocks of 65,536 rows (a step is mostly copying rows out of the
+    file's map to the card)."""
+    import numpy as np
+    from repro_torch.core.dem import DEMStrategy
+    from repro_torch.data.sources import NpyFileSource, SyntheticGMMSource
+
+    split = report["split"]
+    paths = []
+    for c in range(CLIENTS):
+        paths.append(workdir / f"client{c:02d}.npy")
+        np.save(paths[-1], np.ascontiguousarray(
+            split.data[c, :int(split.sizes[c])]))
+    state0 = DEMStrategy(k=K, tol=0.0).state_from_gmm(report["gmm"])
+    walls = {"small": executor_turns(
+        dev, state0, [NpyFileSource(p) for p in paths], TIMED_ROUNDS,
+        f"{CLIENTS} single-block clients")}
+    big = []
+    for c in range(EXECUTOR_FILE_CLIENTS):
+        big.append(workdir / f"big{c}.npy")
+        out = np.lib.format.open_memmap(big[-1], mode="w+", dtype=np.float32,
+                                        shape=(EXECUTOR_FILE_ROWS, D))
+        gen = SyntheticGMMSource(report["gmm"], EXECUTOR_FILE_ROWS,
+                                 seed=10 + c, cache_rows=0)
+        at = 0
+        for block in gen.iter_blocks(BIG_CHUNK):
+            out[at:at + block.shape[0]] = block.cpu().numpy()
+            at += block.shape[0]
+        out.flush()
+        del out
+    walls["files"] = executor_turns(
+        dev, state0, [NpyFileSource(p) for p in big], EXECUTOR_FILE_ROUNDS,
+        f"{EXECUTOR_FILE_CLIENTS} clients of {EXECUTOR_FILE_ROWS} rows in "
+        f"{EXECUTOR_FILE_ROWS // BIG_CHUNK} blocks")
+    nbytes = EXECUTOR_FILE_CLIENTS * EXECUTOR_FILE_ROWS * D * 4 \
+        * EXECUTOR_FILE_ROUNDS
+    log("phase 10 (f): the file clients, best of two: " + "; ".join(
+        f"{n} {min(ws):.3f} s ({nbytes / min(ws) / 1e9:.2f} GB/s of rows)"
+        for n, ws in walls["files"].items()))
+    report["executor_walls"] = walls
+
+
+def phase_uplink_async(dev, report):
+    """Phase 10: the uplink transforms, the DP release and async rounds on
+    phase 3's data, (a)-(f), with every kernel's launches over the phase."""
+    import tempfile
+    from pathlib import Path as _Path
+    import torch
+
+    t_phase = time.perf_counter()
+    clients = counting_clients(report["split"], dev)
+    legs = (("a", lambda w: uplink_dp_one_shot(dev, report, clients)),
+            ("b", lambda w: uplink_dp_depletion(dev, report, clients)),
+            ("c", lambda w: uplink_quantize_mask(dev, report, clients)),
+            ("d", lambda w: uplink_async_sync_equivalent(dev, report,
+                                                         clients)),
+            ("e", lambda w: uplink_async_buffered(dev, report)),
+            ("f", lambda w: uplink_executor(dev, report, w)))
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        for part, fn in legs:
+            t0 = time.perf_counter()
+            fn(_Path(tmp))
+            log(f"phase 10 ({part}): took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    total = kernel_counts()
+    for name in ("estep_stats", "kmeans_sweep_stats", "gmm_log_prob"):
+        check(total[name] > 0, f"kernel {name} was not launched in phase 10")
+    for entry in report["kernels"]:
+        entry["launches_by_path"]["uplink_async"] = total[entry["name"]]
+    log(f"phase 10: launches {total}; took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: the repository (src/repro_torch) is not beside "
@@ -2107,7 +2641,8 @@ def main() -> int:
               ("trace", phase_trace), ("request trace", phase_request_trace),
               ("paper comparison", phase_paper_comparison),
               ("serving", phase_serving),
-              ("out of core", phase_out_of_core)]
+              ("out of core", phase_out_of_core),
+              ("uplink transforms and async rounds", phase_uplink_async)]
     for name, fn in phases:
         if failures:
             log(f"skipping phase {name!r} after a failure")

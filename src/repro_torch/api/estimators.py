@@ -20,8 +20,10 @@ facade                 accepted inputs
 
 Arrays (numpy or tensors) are moved to the device; a source streams its
 blocks there. Seeds replace the JAX package's keys: an explicit ``seed=``
-wins, else the config's. Uplink transforms, ``dp`` and ``async_policy``
-come with a later slice; passing one is a ``TypeError``.
+wins, else the config's. The federated runners take an uplink
+``transform=`` (``repro_torch.fed.transforms``); ``FedGenGMM`` also takes
+``dp=`` (a :class:`DPConfig`, its one-shot Gaussian release), and ``DEM``
+and ``FedEM`` take ``async_policy=`` (buffered asynchronous rounds).
 """
 from __future__ import annotations
 
@@ -40,8 +42,10 @@ from repro_torch.core.fedgen import (SYNTHETIC_MODES, FedGenResult,
                                      fedgengmm_cfg)
 from repro_torch.core.gmm import GMM
 from repro_torch.core.kmeans import KMeansResult, kmeans_fit_cfg
+from repro_torch.core.privacy import DPConfig
+from repro_torch.fed.async_runtime import run_policy
 from repro_torch.fed.cohort import check_sampler_kind
-from repro_torch.fed.runtime import FederationStrategy, run_rounds
+from repro_torch.fed.runtime import FederationStrategy
 from repro_torch.fed.strategies import (FedEMResult, FedKMeansResult,
                                         _resolve_fedkmeans_init,
                                         check_participation, fed_kmeans_cfg,
@@ -312,12 +316,18 @@ class FedGenGMM:
     ``run`` takes a padded split (clients trained as one batch) or a list
     of per-client DataSources (each local fit streamed); ``synthetic``
     ("auto": "source" for source clients, "resident" for a split) says
-    whether S is held on the device or replayed block by block."""
+    whether S is held on the device or replayed block by block.
+
+    ``dp`` (a :class:`DPConfig`) releases every client's parameter block
+    under the one-shot Gaussian mechanism, the whole budget in the one
+    round; ``transform`` installs any uplink transform instead (not both).
+    Pairwise masks are refused: the server reads each block."""
 
     def __init__(self, *, k_clients: Optional[int] = None,
                  k_global: Optional[int] = None,
                  k_candidates: Optional[Sequence[int]] = None,
                  h: int = 100, synthetic: str = "auto",
+                 dp: Optional[DPConfig] = None, transform=None,
                  config: Optional[FitConfig] = None, **overrides):
         if k_clients is None and k_candidates is None:
             raise ValueError("pass k_clients (fixed local K) or "
@@ -335,6 +345,17 @@ class FedGenGMM:
                              f"'source', got {synthetic!r}")
         self.h = _as_int(h, "h")
         self.synthetic = synthetic
+        if dp is not None and transform is not None:
+            raise ValueError(
+                "pass dp (a DPConfig, sugar for a one-shot GaussianDP "
+                "uplink transform) OR transform (any PayloadTransform), "
+                "not both")
+        if dp is not None:
+            if not isinstance(dp, DPConfig):
+                raise TypeError(
+                    f"dp must be a DPConfig, got {type(dp).__name__}")
+            transform = dp.transform()
+        self.transform = transform
         self.config = _make_config(config, overrides)
         _kmeans_init_only(self.config, "FedGenGMM's local fits")
         self.result_: Optional[FedGenResult] = None
@@ -348,7 +369,7 @@ class FedGenGMM:
         self.result_ = fedgengmm_cfg(seed, clients, self.config,
                                      self.k_clients, self.k_global,
                                      self.k_candidates, self.h,
-                                     self.synthetic)
+                                     self.synthetic, self.transform)
         return self.result_
 
     @property
@@ -363,12 +384,16 @@ class DEM:
     sufficient-statistics aggregation per EM iteration. The init scheme is
     ``FitConfig.init`` ("auto" = "fed-kmeans" on a split, "separated" on
     sources, or "separated", "pilot");
-    ``FitConfig.max_iter`` bounds the rounds. ``run`` returns a
+    ``FitConfig.max_iter`` bounds the rounds. ``transform`` is the uplink
+    transform; ``async_policy`` (:class:`repro_torch.fed.AsyncPolicy`) runs
+    the rounds buffered-asynchronously. ``run`` returns a
     :class:`repro_torch.core.dem.DEMResult`."""
 
-    def __init__(self, k: int, *, config: Optional[FitConfig] = None,
-                 **overrides):
+    def __init__(self, k: int, *, transform=None, async_policy=None,
+                 config: Optional[FitConfig] = None, **overrides):
         self.k = _as_int(k, "k")
+        self.transform = transform
+        self.async_policy = async_policy
         self.config = _make_config(config, overrides)
         _resolve_init(self.config.init)
         self.result_: Optional[DEMResult] = None
@@ -379,7 +404,9 @@ class DEM:
         ("auto" init is then "separated"; "pilot" raises)."""
         _classify(clients, "DEM.run", ("split", "sources"))
         seed = self.config.seed if seed is None else seed
-        self.result_ = dem_cfg(seed, clients, self.config, self.k)
+        self.result_ = dem_cfg(seed, clients, self.config, self.k,
+                               transform=self.transform,
+                               async_policy=self.async_policy)
         return self.result_
 
     @property
@@ -397,18 +424,22 @@ class FedEM:
     ``cohort`` how the round loop samples it ("cyclic" window, or "uniform"
     from ``cohort_seed``), and only the cohort computes; ``stragglers``
     (:class:`repro_torch.fed.ArrivalStragglers`) drops each round's slowest
-    arrivals. Init as in :class:`DEM`."""
+    arrivals. Init, ``transform`` and ``async_policy`` as in
+    :class:`DEM`."""
 
     def __init__(self, k: int, *, participation: float = 1.0,
                  local_epochs: int = 1, cohort: str = "cyclic",
-                 cohort_seed: int = 0, stragglers=None,
-                 config: Optional[FitConfig] = None, **overrides):
+                 cohort_seed: int = 0, stragglers=None, transform=None,
+                 async_policy=None, config: Optional[FitConfig] = None,
+                 **overrides):
         self.k = _as_int(k, "k")
         self.participation = check_participation(participation)
         self.local_epochs = _as_int(local_epochs, "local_epochs")
         self.cohort = check_sampler_kind(cohort)
         self.cohort_seed = _as_int(cohort_seed, "cohort_seed", minimum=0)
         self.stragglers = stragglers
+        self.transform = transform
+        self.async_policy = async_policy
         self.config = _make_config(config, overrides)
         _resolve_init(self.config.init)
         self.result_: Optional[FedEMResult] = None
@@ -424,7 +455,9 @@ class FedEM:
                                  local_epochs=self.local_epochs,
                                  cohort=self.cohort,
                                  cohort_seed=self.cohort_seed,
-                                 stragglers=self.stragglers)
+                                 stragglers=self.stragglers,
+                                 transform=self.transform,
+                                 async_policy=self.async_policy)
         return self.result_
 
     @property
@@ -439,11 +472,13 @@ class FedKMeans:
     label statistics against the broadcast centers; the server recombines
     them and stops on the squared center shift (``FitConfig.tol`` through
     the k-means defaults, 1e-4 / 100 rounds). ``FitConfig.init`` is
-    "auto"/"fed-kmeans" (one-shot warm start) or "separated"."""
+    "auto"/"fed-kmeans" (one-shot warm start) or "separated";
+    ``transform`` is the uplink transform."""
 
-    def __init__(self, k: int, *, config: Optional[FitConfig] = None,
-                 **overrides):
+    def __init__(self, k: int, *, transform=None,
+                 config: Optional[FitConfig] = None, **overrides):
         self.k = _as_int(k, "k")
+        self.transform = transform
         self.config = _make_config(config, overrides)
         _resolve_fedkmeans_init(self.config.init)
         self.result_: Optional[FedKMeansResult] = None
@@ -454,7 +489,8 @@ class FedKMeans:
         budget) over a split or a list of per-client DataSources."""
         _classify(clients, "FedKMeans.run", ("split", "sources"))
         seed = self.config.seed if seed is None else seed
-        self.result_ = fed_kmeans_cfg(seed, clients, self.config, self.k)
+        self.result_ = fed_kmeans_cfg(seed, clients, self.config, self.k,
+                                      transform=self.transform)
         return self.result_
 
     @property
@@ -471,13 +507,19 @@ _STRATEGY_RUNNERS = {"fedgen": FedGenGMM, "dem": DEM, "fedem": FedEM,
 
 def fit_federated(clients, *, strategy, seed: Optional[int] = None,
                   config: Optional[FitConfig] = None, max_rounds=None,
-                  sampler=None, stragglers=None, **kwargs):
+                  sampler=None, stragglers=None, transform=None,
+                  async_policy=None, **kwargs):
     """The strategy seam of federated runs. ``strategy`` is a name
     ("fedgen" | "dem" | "fedem" | "fedkmeans"), whose facade is built from
     ``config`` and the other keyword arguments, or a
     :class:`repro_torch.fed.runtime.FederationStrategy` instance, which runs
     on the round loop directly with ``max_rounds`` (default: the config's
-    EM round budget), ``sampler`` and ``stragglers``."""
+    EM round budget), ``sampler`` and ``stragglers``.
+
+    ``transform`` installs an uplink transform on named and custom
+    strategies alike. ``async_policy`` (an ``AsyncPolicy``) runs the rounds
+    through the buffered asynchronous driver: for the iterative names
+    ("dem", "fedem") or a custom iterative strategy."""
     if isinstance(strategy, str):
         if strategy not in _STRATEGY_RUNNERS:
             raise ValueError(
@@ -495,6 +537,14 @@ def fit_federated(clients, *, strategy, seed: Optional[int] = None,
                 "... with cohort='cyclic'|'uniform')")
         if stragglers is not None:
             kwargs["stragglers"] = stragglers
+        if transform is not None:
+            kwargs["transform"] = transform
+        if async_policy is not None:
+            if strategy not in ("dem", "fedem"):
+                raise TypeError(
+                    f"async_policy applies to the iterative strategies "
+                    f"('dem', 'fedem'), not {strategy!r}")
+            kwargs["async_policy"] = async_policy
         runner = _STRATEGY_RUNNERS[strategy](config=config, **kwargs)
         return runner.run(clients, seed=seed)
     if not isinstance(strategy, FederationStrategy):
@@ -508,7 +558,7 @@ def fit_federated(clients, *, strategy, seed: Optional[int] = None,
     if max_rounds is None:
         max_rounds = 1 if getattr(strategy, "one_shot", False) \
             else cfg.resolve_max_iter("em")
-    return run_rounds(strategy, clients,
-                      seed=cfg.seed if seed is None else seed,
-                      device=cfg.resolve_device(), max_rounds=max_rounds,
-                      sampler=sampler, stragglers=stragglers)
+    kw = dict(seed=cfg.seed if seed is None else seed,
+              device=cfg.resolve_device(), max_rounds=max_rounds,
+              sampler=sampler, stragglers=stragglers, transform=transform)
+    return run_policy(strategy, clients, async_policy, **kw)

@@ -36,7 +36,7 @@ from repro_torch.core.kmeans import federated_kmeans
 from repro_torch.data.sources import ConcatSource, DataSource
 from repro_torch.fed.ledger import (CommStats, RoundPayload, dtype_itemsize,
                                     gmm_payload_floats, stats_payload_floats)
-from repro_torch.fed.runtime import run_rounds
+from repro_torch.fed.async_runtime import run_policy
 
 
 class DEMResult(NamedTuple):
@@ -288,17 +288,21 @@ class DEMStrategy:
         return DEMResult(state.gmm, state.ll, n_rounds, converged, comm)
 
 
-def dem_cfg(seed: int, clients, config: FitConfig, k: int) -> DEMResult:
+def dem_cfg(seed: int, clients, config: FitConfig, k: int, transform=None,
+            async_policy=None) -> DEMResult:
     """Run DEM on a padded client split or a list of per-client DataSources:
     the cfg-core behind ``repro_torch.api.DEM``. The init scheme is
     ``config.init`` ("auto" = fed-kmeans on a split, separated on
-    sources); ``config.max_iter`` bounds the rounds."""
+    sources); ``config.max_iter`` bounds the rounds. ``transform`` is the
+    uplink transform; ``async_policy`` (a
+    :class:`repro_torch.fed.async_runtime.AsyncPolicy`) runs the rounds
+    through the buffered asynchronous driver."""
     sources = is_source_list(clients)
     strategy = DEMStrategy(
         k=k, covariance_type=config.covariance_type, backend=config.backend,
         chunk=config.resolve_chunk(sources),
         init=_resolve_init(config.init, sources),
         tol=config.resolve_tol("em"), reg_covar=config.reg_covar)
-    return run_rounds(strategy, clients, seed=seed,
-                      device=config.resolve_device(),
-                      max_rounds=config.resolve_max_iter("em"))
+    kw = dict(seed=seed, device=config.resolve_device(),
+              max_rounds=config.resolve_max_iter("em"), transform=transform)
+    return run_policy(strategy, clients, async_policy, **kw)

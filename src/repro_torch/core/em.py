@@ -92,13 +92,59 @@ def _select(mask: torch.Tensor, new: torch.Tensor,
 # Streaming-statistics engine
 # ----------------------------------------------------------------------
 
+def _tree_children(tree):
+    """(children, rebuild) of one payload node, or (None, None) for a leaf.
+    Nodes are dicts (children in sorted key order, as ``jax.tree`` orders
+    them), GMMs, (named) tuples and lists; leaves are tensors and Python
+    numbers."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        return [tree[k] for k in keys], lambda vals: dict(zip(keys, vals))
+    if isinstance(tree, GMM):
+        return [tree.weights, tree.means, tree.covs], lambda v: GMM(*v)
+    if isinstance(tree, (tuple, list)):
+        if hasattr(tree, "_fields"):
+            return list(tree), lambda vals: type(tree)(*vals)
+        return list(tree), type(tree)
+    return None, None
+
+
+def _tree_leaves(tree) -> list:
+    """Every leaf of a payload, in :func:`_tree_map`'s order."""
+    kids, _ = _tree_children(tree)
+    if kids is None:
+        return [tree]
+    return [leaf for kid in kids for leaf in _tree_leaves(kid)]
+
+
+def _tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of one or more payloads of one structure."""
+    kids, rebuild = _tree_children(tree)
+    if kids is None:
+        return fn(tree, *rest)
+    others = [_tree_children(r)[0] for r in rest]
+    return rebuild([_tree_map(fn, kid, *(o[i] for o in others))
+                    for i, kid in enumerate(kids)])
+
+
+def wrap_int32(v: torch.Tensor) -> torch.Tensor:
+    """The int32 two's-complement value of an integer tensor modulo 2^32,
+    by construction (int64 arithmetic and a mask), so int32 sums wrap the
+    same on every device without relying on signed overflow."""
+    return (((v.to(torch.int64) + 2**31) & 0xFFFFFFFF) - 2**31).to(
+        torch.int32)
+
+
+def _leaf_add(u, v):
+    if isinstance(u, torch.Tensor) and u.dtype == torch.int32:
+        return wrap_int32(u.to(torch.int64) + v.to(torch.int64))
+    return u + v
+
+
 def _tree_add(a, b):
-    """``a + b`` over every tensor of two payloads of one structure (a
-    tensor or a (named) tuple of tensors)."""
-    if isinstance(a, torch.Tensor):
-        return a + b
-    vals = [u + v for u, v in zip(a, b)]
-    return type(a)(*vals) if hasattr(a, "_fields") else tuple(vals)
+    """``a + b`` over every leaf of two payloads of one structure; int32
+    leaves add modulo 2^32 (secure-aggregation channels)."""
+    return _tree_map(_leaf_add, a, b)
 
 
 def _source_map_reduce(block_fn: Callable, source: DataSource,

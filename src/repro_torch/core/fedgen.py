@@ -15,12 +15,18 @@ Clients arrive as a padded split or as a list of per-client
 client's blocks, a host loop over clients). With ``synthetic="source"``
 the server never materializes S either: the refit replays a
 :class:`SyntheticGMMSource` of the merged mixture block by block.
+
+An uplink transform (``run_rounds(transform=...)``) releases each client's
+``(gmm, |D_c|)`` block before the server merges it; under
+:class:`~repro_torch.fed.transforms.GaussianDP` that is the one-shot DP
+release, the whole budget spent in this one round.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core.config import (FitConfig, derive_seed, is_source_list,
@@ -171,7 +177,11 @@ class FedGenStrategy:
         return {"seed_local": derive_seed(seed, "local"),
                 "seed_agg": derive_seed(seed, "aggregate")}
 
-    def run_once(self, state: dict, backend) -> dict:
+    def run_once(self, state: dict, backend, transform=None, tparams=None,
+                 tkey=None) -> dict:
+        """The single round. With an uplink ``transform``, client i's
+        ``(gmm, |D_c|)`` block is released under the round-0 key ``tkey``
+        (its draws its own) before the merge."""
         if backend.kind == "sources":
             local_results = train_locals_sources_cfg(
                 state["seed_local"], backend.sources, self.config,
@@ -191,6 +201,12 @@ class FedGenStrategy:
                 state["seed_local"], backend.data, backend.mask,
                 self.k_candidates, self.config)
         local_gmms = [r.gmm for r in local_results]
+        if transform is not None:
+            members = np.arange(len(local_gmms))
+            local_gmms = [
+                transform.finish(transform.apply(
+                    tkey, tparams, (g, float(n)), i, members))[0]
+                for i, (g, n) in enumerate(zip(local_gmms, backend.sizes))]
         res, synth = aggregate_cfg(state["seed_agg"], local_gmms,
                                    backend.sizes, self.config, self.k_global,
                                    h=self.h, k_candidates=self.k_candidates,
@@ -216,14 +232,17 @@ def fedgengmm_cfg(seed: int, clients, config: FitConfig,
                   k_clients: Optional[int] = None,
                   k_global: Optional[int] = None,
                   k_candidates: Optional[Sequence[int]] = None,
-                  h: int = 100, synthetic: str = "auto") -> FedGenResult:
+                  h: int = 100, synthetic: str = "auto",
+                  transform=None) -> FedGenResult:
     """Run the full one-shot pipeline (the cfg-core behind
     ``repro_torch.api.FedGenGMM``) on a padded client split or a list of
     per-client :class:`DataSource` streams: fix ``k_clients``, or pass
     ``k_candidates`` for per-client BIC selection; fix ``k_global``, or
     leave it None for server-side BIC selection over ``k_candidates``.
     ``synthetic="auto"`` replays S from a source for source clients and
-    holds it resident for a split."""
+    holds it resident for a split. ``transform`` releases every client's
+    parameter block before the merge (e.g. ``GaussianDP`` with
+    ``rounds=1``)."""
     if synthetic == "auto":
         synthetic = "source" if is_source_list(clients) else "resident"
     strategy = FedGenStrategy(
@@ -231,4 +250,4 @@ def fedgengmm_cfg(seed: int, clients, config: FitConfig,
         k_candidates=None if k_candidates is None else tuple(k_candidates),
         h=h, synthetic=synthetic)
     return run_rounds(strategy, clients, seed=seed,
-                      device=config.resolve_device())
+                      device=config.resolve_device(), transform=transform)

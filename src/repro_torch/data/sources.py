@@ -158,6 +158,7 @@ def pad_target(num_rows: int, chunk_size: int) -> int:
 
 
 _MASK_CACHE: dict = {}
+_MASK_LOCK = threading.Lock()   # client workers fill the cache concurrently
 
 
 def _block_mask(target: int, valid: int, dtype,
@@ -166,11 +167,12 @@ def _block_mask(target: int, valid: int, dtype,
     device, so every full block of a pass shares one buffer. Built on the
     calling thread's current stream."""
     key = (target, valid, dtype, device)
-    mask = _MASK_CACHE.get(key)
-    if mask is None:
-        mask = torch.zeros(target, dtype=dtype, device=device)
-        mask[:valid] = 1
-        _MASK_CACHE[key] = mask
+    with _MASK_LOCK:
+        mask = _MASK_CACHE.get(key)
+        if mask is None:
+            mask = torch.zeros(target, dtype=dtype, device=device)
+            mask[:valid] = 1
+            _MASK_CACHE[key] = mask
     return mask
 
 

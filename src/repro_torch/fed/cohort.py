@@ -1,6 +1,5 @@
-"""Cohort sampling and straggler handling for the federation runtime (port
-of ``repro/fed/cohort.py``; the async ``PolynomialStaleness`` rule comes
-with async rounds).
+"""Cohort sampling, straggler handling and the staleness rule of the
+federation runtime (port of ``repro/fed/cohort.py``).
 
 - A **cohort sampler** gives ``cohort(rnd) -> (m,)`` sorted global client
   indices, the clients round ``rnd`` trains. :class:`CyclicSampler` is
@@ -9,6 +8,9 @@ with async rounds).
 - A **straggler policy** gives ``drop_mask(rnd, cohort) -> (m,)`` 0/1
   weights: :class:`ArrivalStragglers` draws an arrival time per cohort
   member and drops the slowest ``drop_frac`` of them.
+- A **staleness rule** gives ``weight(s)``, the weight of an update the
+  asynchronous driver consumes ``s`` combines after its dispatch:
+  :class:`PolynomialStaleness`.
 
 The round loop runs on the host, so both return numpy arrays, computed on
 the host before the round's clients launch. Random draws come from the
@@ -89,6 +91,36 @@ def make_sampler(kind: str, num_clients: int, cohort_size: int,
     if check_sampler_kind(kind) == "cyclic":
         return CyclicSampler(int(num_clients), int(cohort_size))
     return UniformSampler(int(num_clients), int(cohort_size), seed=int(seed))
+
+
+@dataclasses.dataclass(frozen=True)
+class PolynomialStaleness:
+    """The staleness rule of the asynchronous driver
+    (``repro_torch.fed.async_runtime.run_async``): an update consumed ``s``
+    server versions after its dispatch weighs ``(1 + s)^-alpha`` (Xie et
+    al.'s polynomial damping), the straggler rule generalized from {0, 1}
+    to (0, 1]. The weight multiplies the client's additive payload, its
+    ``wsum`` included, so the M-step renormalizes by the surviving mass.
+
+    Fresh updates (``s = 0``) and ``alpha = 0`` weigh exactly 1.0, which
+    keeps the zero-staleness configuration bit-identical to the
+    synchronous loop."""
+
+    alpha: float = 0.5
+
+    def __post_init__(self):
+        if not float(self.alpha) >= 0.0:
+            raise ValueError(
+                f"staleness alpha must be >= 0, got {self.alpha}")
+
+    def weight(self, staleness: int) -> float:
+        """Weight of an update consumed ``staleness`` versions late."""
+        s = int(staleness)
+        if s < 0:
+            raise ValueError(f"staleness must be >= 0, got {staleness}")
+        if s == 0 or self.alpha == 0.0:
+            return 1.0
+        return float((1.0 + s) ** -float(self.alpha))
 
 
 @dataclasses.dataclass(frozen=True)

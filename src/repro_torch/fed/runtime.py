@@ -23,11 +23,18 @@ communication ledger.
   ``keep_going(state)`` and ``post_rounds(state, backend)``, and the same
   ``round_payload`` / ``finalize``.
 
+An uplink transform (``repro_torch.fed.transforms``) is applied to every
+client's payload between ``local_step`` and the reduce, with the round's
+shared :class:`~repro_torch.fed.transforms.UplinkKey`; its ``finish`` runs
+on the summed total before ``server_combine``. Payloads may then hold
+dicts and int32 leaves (the secure-aggregation channel), which the reduces
+sum modulo 2^32.
+
 The JAX package runs resident round loops as one jitted ``while_loop``.
 Here the loop runs on the host: one bootstrap round, then rounds while the
 strategy's ``keep_going`` holds, reading that one flag per round (one
-device sync), as the EM loop does (``core/em.py::_em_loop``). Meshes,
-uplink transforms and executors come with later slices.
+device sync), as the EM loop does (``core/em.py::_em_loop``). The JAX
+package's mesh backend (``ShardedClients``) is not ported.
 """
 from __future__ import annotations
 
@@ -37,8 +44,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.config import is_source_list
-from repro_torch.core.em import _tree_add
+from repro_torch.core.em import _tree_add, _tree_map, wrap_int32
 from repro_torch.fed.ledger import CommStats
+from repro_torch.fed.transforms import uplink_key
 
 
 @runtime_checkable
@@ -55,13 +63,13 @@ class FederationStrategy(Protocol):
     def finalize(self, state, n_rounds, converged, comm: CommStats): ...
 
 
-def _tree_map(fn, tree):
-    """``fn`` over every tensor of a payload (a tensor or a (named) tuple
-    of tensors)."""
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    vals = [fn(t) for t in tree]
-    return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+def _sum_clients(s: torch.Tensor) -> torch.Tensor:
+    """The sum of a stacked payload leaf over its client axis: float leaves
+    as ``torch.sum``, int32 leaves modulo 2^32 (``torch.sum`` would promote
+    them to int64 and never wrap)."""
+    if s.dtype == torch.int32:
+        return wrap_int32(torch.sum(s, dim=0, dtype=torch.int64))
+    return torch.sum(s, dim=0)
 
 
 class SplitClients:
@@ -95,23 +103,30 @@ class SplitClients:
     def device(self) -> torch.device:
         return self.data.device
 
-    def reduce_clients(self, local_step, state, cohort=None, weights=None):
+    def reduce_clients(self, local_step, state, cohort=None, weights=None,
+                       transform=None, tparams=None, tkey=None):
         """Run ``local_step`` on all clients, or on the ``cohort`` (sorted
-        global indices) only, as one batch; zero the dropped clients by
-        ``weights`` (0/1 per member); and sum the payloads over clients.
+        global indices) only, as one batch; apply the uplink ``transform``
+        (if any) to every client's payload; zero the dropped clients by
+        ``weights`` (per member, multiplied in each leaf's dtype); and sum
+        the payloads over clients.
 
         A cohort's m payloads are scattered into their population slots of
         a zero-filled (C, ...) tensor before the sum over C, so a cohort
         round adds in the same order as the full-population round with the
         non-members' payloads zeroed."""
         c = self.num_clients
+        ids = np.arange(c) if cohort is None else np.asarray(cohort)
         if cohort is None:
             idx = torch.arange(c, device=self.device)
             per = local_step(state, self.data, self.mask, idx)
         else:
-            idx = torch.as_tensor(np.asarray(cohort), dtype=torch.int64,
+            idx = torch.as_tensor(ids, dtype=torch.int64,
                                   device=self.device)
             per = local_step(state, self.data[idx], self.mask[idx], idx)
+        if transform is not None:
+            # every client gets the round's shared key; its draws are its own
+            per = transform.apply(tkey, tparams, per, ids, ids)
         if weights is not None:
             wt = torch.as_tensor(np.asarray(weights), device=self.device)
             per = _tree_map(lambda s: s * wt.to(s.dtype).view(
@@ -119,7 +134,7 @@ class SplitClients:
         if cohort is not None:
             per = _tree_map(lambda s: s.new_zeros((c,) + s.shape[1:])
                             .index_copy_(0, idx, s), per)
-        return _tree_map(lambda s: torch.sum(s, dim=0), per)
+        return _tree_map(_sum_clients, per)
 
 
 class SourceClients:
@@ -127,13 +142,23 @@ class SourceClients:
     ``device``. A round is a host loop over the (cohort) clients, each
     streaming its own blocks through the engine; the payloads are summed in
     cohort order, so the sum does not depend on how the clients were
-    scheduled."""
+    scheduled.
+
+    ``executor`` (a :class:`repro_torch.fed.async_runtime.ClientExecutor`,
+    or anything with ``map_ordered(fn, items) -> list``) runs the clients'
+    steps on its worker threads, so one client's host work (block reads,
+    padding, launches) can overlap another's device work. Workers launch on
+    the calling thread's current stream, so every client's kernels are
+    ordered before the reduce that the calling thread enqueues after
+    collecting them; the payloads are still summed in cohort order, so the
+    result has the serial loop's bits."""
 
     kind = "sources"
 
-    def __init__(self, sources, device):
+    def __init__(self, sources, device, executor=None):
         self.sources = list(sources)
         self.device = torch.device(device)
+        self.executor = executor
 
     @property
     def num_clients(self) -> int:
@@ -151,21 +176,40 @@ class SourceClients:
     def sizes(self) -> np.ndarray:
         return np.asarray([s.num_rows for s in self.sources], np.int64)
 
-    def reduce_clients(self, local_step, state, cohort=None, weights=None):
-        """Run ``local_step(state, source, None, i)`` for every client, or
-        for the ``cohort`` (sorted global indices) only, skipping the
-        clients ``weights`` drops (0) and scaling the others by their
-        weight; sum the payloads in cohort order."""
-        members = (range(self.num_clients) if cohort is None
-                   else [int(i) for i in np.asarray(cohort)])
+    def reduce_clients(self, local_step, state, cohort=None, weights=None,
+                       transform=None, tparams=None, tkey=None):
+        """Run ``local_step(state, source, None, i)`` and the uplink
+        ``transform`` (if any) for every client, or for the ``cohort``
+        (sorted global indices) only, skipping the clients ``weights``
+        drops (0) and scaling the others by their weight; sum the payloads
+        in cohort order."""
+        ids = (np.arange(self.num_clients) if cohort is None
+               else np.asarray(cohort))
         w = None if weights is None else np.asarray(weights)
+        # a dropped client's step never runs, serially or on the executor
+        jobs = [(pos, int(i)) for pos, i in enumerate(ids)
+                if w is None or w[pos] != 0.0]
+
+        stream = (torch.cuda.current_stream(self.device)
+                  if self.device.type == "cuda" else None)
+
+        def run(i):
+            with torch.cuda.stream(stream):
+                p = local_step(state, self.sources[i], None, i)
+                if transform is None:
+                    return p
+                return transform.apply(tkey, tparams, p, i, ids)
+
+        if self.executor is not None and len(jobs) > 1:
+            raw = self.executor.map_ordered(run, [i for _, i in jobs])
+        else:
+            raw = [run(i) for _, i in jobs]
         total = None
-        for pos, i in enumerate(members):
-            if w is not None and w[pos] == 0.0:
-                continue    # a dropped client's step never runs
-            p = local_step(state, self.sources[i], None, i)
+        for (pos, _), p in zip(jobs, raw):
             if w is not None and w[pos] != 1.0:
-                p = _tree_map(lambda s: s * float(w[pos]), p)
+                p = _tree_map(lambda s: s * (float(w[pos])
+                                             if s.dtype.is_floating_point
+                                             else int(w[pos])), p)
             total = p if total is None else _tree_add(total, p)
         if total is None:
             raise ValueError("every client of the round was dropped")
@@ -179,7 +223,7 @@ def make_backend(clients, device):
     onto ``device``, and a list of per-client DataSources becomes
     :class:`SourceClients` on ``device``."""
     if isinstance(clients, SourceClients):
-        return SourceClients(clients.sources, device)
+        return SourceClients(clients.sources, device, clients.executor)
     if is_source_list(clients):
         return SourceClients(clients, device)
     if isinstance(clients, SplitClients):
@@ -206,6 +250,17 @@ def _keep_going(strategy, state):
     if kg is not None:
         return kg(state)
     return not strategy.converged(state)
+
+
+def _round(strategy, state, backend, cohort=None, weights=None,
+           transform=None, tparams=None, tkey=None):
+    """One round: client updates -> (transformed) uplink -> reduce ->
+    transform ``finish`` -> server combine."""
+    total = backend.reduce_clients(strategy.local_step, state, cohort,
+                                   weights, transform, tparams, tkey)
+    if transform is not None:
+        total = transform.finish(total)
+    return strategy.server_combine(state, total)
 
 
 def _cohort_and_weights(sampler, stragglers, backend, rnd: int):
@@ -237,9 +292,41 @@ class _CohortView:
         return self._backend.dim
 
 
+_TRANSFORM_METHODS = ("apply", "finish", "traced", "wire_itemsize",
+                      "epsilon_per_round")
+
+
+def _validate_transform(transform):
+    """Duck-type and hashability check of an uplink transform (frozen
+    dataclasses are the contract, as in the JAX package, where a transform
+    is a static jit argument)."""
+    missing = [m for m in _TRANSFORM_METHODS
+               if not callable(getattr(transform, m, None))]
+    if missing:
+        raise TypeError(
+            f"transform {type(transform).__name__} is missing "
+            f"{missing}; see repro_torch.fed.transforms.PayloadTransform")
+    try:
+        hash(transform)
+    except TypeError as e:
+        raise TypeError(
+            f"transform {type(transform).__name__} must be hashable "
+            f"(a frozen dataclass)") from e
+
+
+def _transform_ledger(payload, transform):
+    """The transform-aware ledger: the uplink carries the transform's wire
+    dtype, and each realized round spends its epsilon."""
+    if transform is None:
+        return payload
+    return payload._replace(
+        uplink_itemsize=transform.wire_itemsize(payload.itemsize),
+        epsilon_per_round=float(transform.epsilon_per_round()))
+
+
 def run_rounds(strategy, clients, *, seed: int = 0, device="cuda",
                state0=None, max_rounds: int = 1, sampler=None,
-               stragglers=None):
+               stragglers=None, transform=None, executor=None):
     """Run a federation strategy to convergence: THE round loop.
 
     One-shot strategies run one round. Iterative ones run a bootstrap
@@ -250,8 +337,17 @@ def run_rounds(strategy, clients, *, seed: int = 0, device="cuda",
     per-round ledger to it; ``stragglers`` drops each round's slowest
     arrivals to an exact-zero contribution. After the loop, the strategy's
     ``post_rounds`` (if any) runs once, then the ledger is drawn up: the
-    strategy's :class:`RoundPayload` times the realized rounds."""
+    strategy's :class:`RoundPayload` times the realized rounds.
+
+    ``transform`` (``repro_torch.fed.transforms``) is applied to every
+    client's uplink; the ledger then carries its wire dtype and
+    ``epsilon_spent``. An additive-only transform (pairwise masks) is
+    refused for a one-shot strategy, whose server reads each client's
+    payload. ``executor`` (a ``ClientExecutor``) runs source clients'
+    steps on worker threads; resident clients ignore it."""
     backend = make_backend(clients, device)
+    if executor is not None and backend.kind == "sources":
+        backend.executor = executor
     one_shot = getattr(strategy, "one_shot", False)
     if one_shot and (sampler is not None or stragglers is not None):
         raise ValueError(
@@ -261,19 +357,34 @@ def run_rounds(strategy, clients, *, seed: int = 0, device="cuda",
         raise ValueError(
             f"sampler is sized for {sampler.num_clients} clients but the "
             f"backend has {backend.num_clients}")
+    tparams = None
+    if transform is not None:
+        _validate_transform(transform)
+        if one_shot and getattr(transform, "additive_only", False):
+            raise ValueError(
+                f"{type(transform).__name__} masks only cancel in an "
+                f"additive aggregate; a one-shot strategy's server reads "
+                f"each client payload individually, so the combination "
+                f"is meaningless")
+        tparams = transform.traced()
     if state0 is None:
         state0 = strategy.init_state(seed, backend)
 
     if one_shot:
-        state = strategy.run_once(state0, backend)
+        if transform is None:
+            state = strategy.run_once(state0, backend)
+        else:
+            state = strategy.run_once(state0, backend, transform=transform,
+                                      tparams=tparams,
+                                      tkey=uplink_key(transform, 0))
         rounds, converged = 1, True
     else:
         def one_round(state, rnd):
             cohort, weights = _cohort_and_weights(sampler, stragglers,
                                                   backend, rnd)
-            total = backend.reduce_clients(strategy.local_step, state,
-                                           cohort, weights)
-            return strategy.server_combine(state, total)
+            tkey = None if transform is None else uplink_key(transform, rnd)
+            return _round(strategy, state, backend, cohort, weights,
+                          transform, tparams, tkey)
 
         state = one_round(state0, 0)
         rounds = 1
@@ -287,6 +398,7 @@ def run_rounds(strategy, clients, *, seed: int = 0, device="cuda",
 
     ledger_backend = backend if sampler is None \
         else _CohortView(backend, sampler.cohort_size)
-    comm: CommStats = strategy.round_payload(ledger_backend,
-                                             state).totals(rounds)
+    payload = _transform_ledger(
+        strategy.round_payload(ledger_backend, state), transform)
+    comm: CommStats = payload.totals(rounds)
     return strategy.finalize(state, rounds, converged, comm)

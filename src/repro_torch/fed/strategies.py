@@ -32,6 +32,7 @@ from repro_torch.core.kmeans import federated_kmeans, lloyd_round_stats
 from repro_torch.fed.cohort import make_sampler
 from repro_torch.fed.ledger import (CommStats, RoundPayload, dtype_itemsize,
                                     label_payload_floats)
+from repro_torch.fed.async_runtime import run_policy
 from repro_torch.fed.runtime import run_rounds
 
 
@@ -146,13 +147,16 @@ class FedEMStrategy(DEMStrategy):
 def fedem_cfg(seed: int, clients, config: FitConfig, k: int,
               participation: float = 1.0, local_epochs: int = 1,
               cohort: str = "cyclic", cohort_seed: int = 0,
-              stragglers=None) -> FedEMResult:
+              stragglers=None, transform=None,
+              async_policy=None) -> FedEMResult:
     """Run FedEM on a padded client split or a list of per-client
     DataSources: the cfg-core behind ``repro_torch.api.FedEM``.
     ``participation < 1`` installs the round loop's cohort sampler
     (``cohort``: "cyclic" or "uniform" from ``cohort_seed``); at full
     participation there is none, and the run is DEM's. ``stragglers`` drops
-    each round's slowest arrivals."""
+    each round's slowest arrivals; ``transform`` is the uplink transform;
+    ``async_policy`` runs the rounds through the buffered asynchronous
+    driver."""
     sources = is_source_list(clients)
     n_clients = len(clients) if sources else clients.data.shape[0]
     strategy = FedEMStrategy(
@@ -166,10 +170,10 @@ def fedem_cfg(seed: int, clients, config: FitConfig, k: int,
     if strategy.participation < 1.0:
         sampler = make_sampler(cohort, n_clients, strategy.cohort_size(),
                                seed=cohort_seed)
-    return run_rounds(strategy, clients, seed=seed,
-                      device=config.resolve_device(),
-                      max_rounds=config.resolve_max_iter("em"),
-                      sampler=sampler, stragglers=stragglers)
+    kw = dict(seed=seed, device=config.resolve_device(),
+              max_rounds=config.resolve_max_iter("em"), sampler=sampler,
+              stragglers=stragglers, transform=transform)
+    return run_policy(strategy, clients, async_policy, **kw)
 
 
 # ----------------------------------------------------------------------
@@ -293,12 +297,12 @@ def _resolve_fedkmeans_init(init: str) -> str:
     return init
 
 
-def fed_kmeans_cfg(seed: int, clients, config: FitConfig,
-                   k: int) -> FedKMeansResult:
+def fed_kmeans_cfg(seed: int, clients, config: FitConfig, k: int,
+                   transform=None) -> FedKMeansResult:
     """Run iterative federated k-means on a padded client split or a list
     of per-client DataSources: the cfg-core behind
     ``repro_torch.api.FedKMeans``. ``tol`` and ``max_iter`` resolve through
-    the "kmeans" defaults."""
+    the "kmeans" defaults; ``transform`` is the uplink transform."""
     device = config.resolve_device()
     strategy = FedKMeansStrategy(
         k=k, assign_backend=config.backend,
@@ -306,4 +310,5 @@ def fed_kmeans_cfg(seed: int, clients, config: FitConfig,
         init=_resolve_fedkmeans_init(config.init),
         tol=config.resolve_tol("kmeans"))
     return run_rounds(strategy, clients, seed=seed, device=device,
-                      max_rounds=config.resolve_max_iter("kmeans"))
+                      max_rounds=config.resolve_max_iter("kmeans"),
+                      transform=transform)

@@ -31,6 +31,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lock = threading.Lock()
+# Guards the wrappers' launch counts, which client workers bump from
+# several threads (a bare ``+= 1`` can lose an update between threads).
+COUNT_LOCK = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 

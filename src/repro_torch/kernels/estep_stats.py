@@ -55,7 +55,8 @@ def estep_stats(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                       c.data_ptr(), partial.data_ptr(), out.data_ptr(),
                       cl, n, d, k, _build.stream_of(x))
         _build.check_launch("estep_stats", code)
-        launches += 1
+        with _build.COUNT_LOCK:
+            launches += 1
     kd = k * d
     return (out[:, :k], out[:, k:k + kd].view(cl, k, d),
             out[:, k + kd:k + 2 * kd].view(cl, k, d), out[:, -1])

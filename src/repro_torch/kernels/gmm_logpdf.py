@@ -54,7 +54,8 @@ def gmm_logpdf(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     if n == 0 or k == 0:
         return out
     _launch("gmm_logpdf_launch", x, a, b, c, out, n, d, k)
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return out
 
 
@@ -70,5 +71,6 @@ def gmm_log_prob(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     if n == 0 or k == 0:
         return out.fill_(-float("inf"))
     _launch("gmm_log_prob_launch", x, a, b, c, out, n, d, k)
-    log_prob_launches += 1
+    with _build.COUNT_LOCK:
+        log_prob_launches += 1
     return out

@@ -88,7 +88,8 @@ def kmeans_assign(x: torch.Tensor, ct: torch.Tensor, c2: torch.Tensor):
                   dmin.data_ptr(), bsz, n, d, k, per_chunk,
                   _build.stream_of(x))
     _build.check_launch("kmeans_assign", code)
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return idx, dmin
 
 
@@ -128,6 +129,7 @@ def kmeans_sweep_stats(x: torch.Tensor, w: torch.Tensor, ct: torch.Tensor,
                       partial.data_ptr(), out.data_ptr(), bsz, n, d, k,
                       per_chunk, _build.stream_of(x))
         _build.check_launch("kmeans_assign", code)
-        sweep_launches += 1
+        with _build.COUNT_LOCK:
+            sweep_launches += 1
     return (out[:, :k], out[:, k:k + k * d].view(bsz, k, d), out[:, -1],
             idx)

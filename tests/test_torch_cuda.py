@@ -542,3 +542,99 @@ class TestOutOfCoreOnCard:
         assert peak < 64 * chunk * 8 * 4, peak
         got = np.sort(res.gmm.means[:, 0].cpu().numpy())
         np.testing.assert_allclose(got, [-4.0, 4.0], atol=0.1)
+
+
+@pytest.mark.cuda
+class TestUplinkOnCard:
+    """The uplink transforms and the client executor on the card: the int32
+    lattice saturates and the channel wraps as on the CPU (no reliance on a
+    device's float-to-int cast or signed overflow), pair masks cancel
+    exactly through the resident reduce, DP draws stay on the card, and the
+    executor's pooled rounds have the serial loop's bits."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card: the transforms draw there")
+
+    @pytest.mark.parametrize("fp_bits", [0, 16, 30])
+    def test_lattice_saturates_as_on_the_cpu(self, fp_bits):
+        from repro_torch.fed.transforms import PairwiseMask
+        edge = 2.0 ** 31 / 2.0 ** fp_bits
+        vals = torch.tensor([0.0, 0.4, -0.6, edge, -edge, edge * 0.999999,
+                             edge * 1.5, -edge * 1.5, 3e9, -3e9,
+                             float("inf"), float("-inf")])
+        t = PairwiseMask(fp_bits=fp_bits)
+        got = t._lattice(vals.cuda())
+        assert got.dtype == torch.int32
+        assert torch.equal(got.cpu(), t._lattice(vals))
+        assert int(got[3]) == 2**31 - 1 and int(got[4]) == -2**31
+
+    def test_int32_sums_wrap(self):
+        from repro_torch.core.em import _tree_add, wrap_int32
+        from repro_torch.fed.runtime import _sum_clients
+        big = torch.tensor([2**31 - 1, -2**31, 5], dtype=torch.int32,
+                           device="cuda")
+        assert _tree_add(big, big).tolist() == [-2, 0, 10]
+        stacked = torch.stack([big, big, big])
+        assert _sum_clients(stacked).dtype == torch.int32
+        assert _sum_clients(stacked).tolist() == [2**31 - 3, -2**31, 15]
+        v = torch.tensor([2**32 + 7, -(2**31) - 1], device="cuda")
+        assert wrap_int32(v).tolist() == [7, 2**31 - 1]
+
+    def test_masks_cancel_through_the_reduce(self):
+        from repro_torch.core.em import SufficientStats, wrap_int32
+        from repro_torch.fed.transforms import PairwiseMask, uplink_key
+        rng = np.random.default_rng(0)
+        x = torch.as_tensor(rng.uniform(0, 1, (6, 300, 5)),
+                            dtype=torch.float32, device="cuda")
+        clients = SplitClients(x, torch.ones((6, 300), device="cuda"),
+                               np.full(6, 300))
+        g = GMM(torch.full((3,), 1 / 3, device="cuda"),
+                torch.as_tensor(rng.uniform(0, 1, (3, 5)),
+                                dtype=torch.float32, device="cuda"),
+                torch.full((3, 5), 0.05, device="cuda"))
+        strat = DEMStrategy(k=3)
+        state = strat.state_from_gmm(g)
+        t = PairwiseMask(seed=4)
+        total = clients.reduce_clients(strat.local_step, state,
+                                       transform=t, tparams=(),
+                                       tkey=uplink_key(t, 0))
+        idx = torch.arange(6, device="cuda")
+        per = strat.local_step(state, x, clients.mask, idx)
+        for f, leaf in enumerate(total["secagg"]):
+            assert leaf.device.type == "cuda" and leaf.dtype == torch.int32
+            want = wrap_int32(t._lattice(per[f]).long().sum(0))
+            assert torch.equal(leaf, want), SufficientStats._fields[f]
+        plain = clients.reduce_clients(strat.local_step, state)
+        for a, b in zip(total["payload"], plain):
+            assert torch.equal(a, b)
+
+    def test_dp_draws_on_the_card(self):
+        from repro_torch.core.privacy import DPConfig, privatize_gmm
+        g = GMM(torch.full((2,), 0.5, device="cuda"),
+                torch.full((2, 3), 0.5, device="cuda"),
+                torch.full((2, 3), 0.05, device="cuda"))
+        a = privatize_gmm(3, g, 100.0, DPConfig(epsilon=1.0))
+        b = privatize_gmm(3, g, 100.0, DPConfig(epsilon=1.0))
+        assert a.means.device.type == "cuda"
+        assert torch.equal(a.means, b.means)
+        assert not torch.equal(a.means, g.means)
+
+    def test_executor_bits_on_the_card(self):
+        from repro_torch.data.sources import ArraySource
+        from repro_torch.fed import ClientExecutor, GaussianDP
+        rng = np.random.default_rng(1)
+        shards = [ArraySource(torch.as_tensor(
+            rng.uniform(0, 1, (n, 6)), dtype=torch.float32, device="cuda"))
+            for n in (900, 1200, 700, 1500, 400, 1100)]
+        strat = DEMStrategy(k=4, init="separated", tol=0.0)
+        for t in (None, GaussianDP(epsilon=2.0, rounds=4, seed=2)):
+            serial = run_rounds(strat, shards, device="cuda", max_rounds=4,
+                                transform=t)
+            with ClientExecutor(4) as ex:
+                pooled = run_rounds(strat, shards, device="cuda",
+                                    max_rounds=4, transform=t, executor=ex)
+            for f in ("weights", "means", "covs"):
+                assert torch.equal(getattr(serial.global_gmm, f),
+                                   getattr(pooled.global_gmm, f))

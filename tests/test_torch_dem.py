@@ -195,9 +195,9 @@ def test_all_inits_converge(setup, init):
 def test_dem_validation(setup):
     with pytest.raises(ValueError, match="kmeans"):
         api.DEM(K, init="kmeans", device="cpu")
-    with pytest.raises(TypeError):
-        api.DEM(K, transform=None, device="cpu")
     _, _, split = setup
+    with pytest.raises(TypeError, match="PayloadTransform"):
+        api.DEM(K, transform=object(), config=CPU).run(split)
     bare = split_to_clients(split, "cpu")
     bare.split = None
     with pytest.raises(ValueError, match="ClientSplit"):
