@@ -98,16 +98,37 @@ Phases (each failure makes the exit code non-zero):
      rows in 16 blocks each, serially and on a ``ClientExecutor`` of one
      and of four workers, bit-identical, the walls in turns. Phase 2 also
      holds ``estep_stats`` at (e)'s batches (16 and 64 clients padded to
-     the largest client, each under its own 0/1 mask).
+     the largest client, each under its own 0/1 mask);
+ 11. the mesh runtime at world size 1 (``torch.distributed`` with NCCL over
+     a ``file://`` store, a one-rank ``"data"`` ``DeviceMesh``), continual
+     FedGenGMM and split-merge EM on phase 3's data: (a) ``fedgen_sharded``
+     bit-identical to ``fedgengmm_cfg`` with one all-gather; (b) DEM from
+     phase 7's fed-kmeans centers, FedEM (participation 0.5, 2 local
+     epochs) and FedKMeans sharded, each timed in turns with its
+     single-process run, with phase 7's rounds, bits and Table 4 ledger,
+     one all-reduce a round (read from ``ShardedClients.collectives``) and
+     one ``estep_stats`` a round a local epoch (DEM, FedEM) or one
+     ``kmeans_sweep_stats`` a round (FedKMeans); (c) sharded DEM over 4
+     rounds under ``Identity`` and ``PairwiseMask`` bit-identical to no
+     transform, under ``GaussianDP(2, rounds=4)`` not; (d) ``run_async
+     (mesh=)`` sync-equivalent bit-identical to ``run_rounds(mesh=)``; (e)
+     continual FedGenGMM over three windows of the 60,000 rows, each split
+     over 20 clients, memory 0.5, one round a window, each window scored;
+     (f) ``split_merge_fit`` on each of the 20 clients at K = 30, never
+     below the plain fit by more than 1e-5, both walls, and the
+     split-merge locals aggregated and scored. The sharded walls are
+     printed beside the single-process ones and the card's name and power
+     limit.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``. A kernel's ``launches`` there is phase
 3's main-path count; ``launches_by_path`` adds phase 8's serving runs (the
 wrapper's launches: a warm-up and a capture at each install, since a replay
 does not call it), phase 9 (a)'s out-of-core run with its scoring over
-sources and phase 10's runs (``uplink_async``), and ``serving_device_launches`` the kernel's launches
-that the profiler saw on the device in phase 8's traced runs (one a
-micro-batch). Without CUDA, or without the repository beside it, the
+sources, phase 10's runs (``uplink_async``) and phase 11's
+(``mesh_continual_splitmerge``), and ``serving_device_launches`` the
+kernel's launches that the profiler saw on the device in phase 8's traced
+runs (one a micro-batch). Without CUDA, or without the repository beside it, the
 script exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -470,7 +491,9 @@ def phase_kernels(dev, report):
     # training rows as one block padded to 60,032
     ooc_errs = [logpdf_case(n, D, K, 40 + i)
                 for i, n in enumerate(OOC_LOGPDF_ROWS)]
-    cases = [full_errs, request_errs] + slab_errs + ooc_errs
+    # phase 11 (e)'s scoring of one window's 20,000 rows
+    window_errs = logpdf_case(N_TRAIN // CONTINUAL_WINDOWS, D, K, 60)
+    cases = [full_errs, request_errs, window_errs] + slab_errs + ooc_errs
     errs["gmm_logpdf"] = max(e[0] for e in cases)
     errs["gmm_log_prob"] = max(e[1] for e in cases)
     rows_stable(15)
@@ -489,13 +512,34 @@ def phase_kernels(dev, report):
     errs["estep_stats"] = max(errs["estep_stats"], *(
         estep_case(len(v), width, D, K, 500 + i, valid=v)
         for i, v in enumerate(batches)))
+    # phase 11's fits. (e): each window's 20 clients at the window's padded
+    # width, each under its own 0/1 mask (the local E-step; the 4 restarts'
+    # pilot sweeps and the local Lloyd sweeps), and the refit with the old
+    # global model as one more client, h(CK + K) rows. (f): the unmasked
+    # 2-D fit of each client's own |D_c| rows (the E-step; the pilot sweeps
+    # and the Lloyd sweeps of its k-means init)
+    sweeps = []
+    for i, (_, split_w) in enumerate(continual_windows()):
+        width = split_w.data.shape[1]
+        errs["estep_stats"] = max(errs["estep_stats"], estep_case(
+            CLIENTS, width, D, K, 600 + i, valid=split_w.sizes))
+        sweeps += [(CLIENTS * 4, width), (CLIENTS, width)]
+    errs["estep_stats"] = max(errs["estep_stats"],
+                              estep_case(1, CONTINUAL_SYNTH, D, K, 610))
+    sweeps.append((1, CONTINUAL_SYNTH))
+    client_rows = [int(n) for n in main_split().sizes]
+    for i, n in enumerate(client_rows):
+        errs["estep_stats"] = max(errs["estep_stats"],
+                                  estep_case(1, n, D, K, 700 + i, valid=n))
+        sweeps += [(4, n), (1, n)]
     errs["kmeans_assign"] = max(assign_case(CLIENTS, N_PAD, D, K, 4)[0],
                                 assign_case(1, N_SYNTH, D, K, 5)[0],
                                 # phase 9's label pass: one 2-D block
                                 assign_case(None, BIG_CHUNK, D, K, 8)[0])
     errs["kmeans_sweep_stats"] = max(
         sweep_case(bsz, n, D, K, 20 + i)
-        for i, (bsz, n) in enumerate(SWEEP_SHAPES + OOC_SWEEP_SHAPES))
+        for i, (bsz, n) in enumerate(SWEEP_SHAPES + OOC_SWEEP_SHAPES
+                                     + sweeps))
     # ties: every center duplicated, so each row has two nearest centers
     rng = np.random.default_rng(6)
     base = torch.as_tensor(rng.normal(0, 2, (1, 8, D)), dtype=torch.float32,
@@ -508,6 +552,14 @@ def phase_kernels(dev, report):
         f"batches: {sorted({len(v) for v in batches})} clients x {width} "
         f"padded rows, {min(int(v.min()) for v in batches)}.."
         f"{max(int(v.max()) for v in batches)} valid rows a client")
+    log(f"phase 2: estep_stats and kmeans_sweep_stats held at phase 11's "
+        f"shapes: (e)'s windows "
+        + ", ".join(f"{CLIENTS} x {sp.data.shape[1]} ({int(sp.sizes.min())}"
+                    f"..{int(sp.sizes.max())} valid)"
+                    for _, sp in continual_windows())
+        + f" and the {CONTINUAL_SYNTH:,}-row refit; (f)'s {CLIENTS} unmasked "
+        f"clients of {min(client_rows)}..{max(client_rows)} rows; "
+        f"gmm_log_prob at (e)'s {N_TRAIN // CONTINUAL_WINDOWS:,} rows")
     log(f"phase 2: kernels match their plain versions; main-path max abs "
         f"err {errs}; gmm_log_prob, estep_stats and kmeans_sweep_stats "
         f"bit-reproducible; gmm_log_prob rows the same bits alone, in "
@@ -525,13 +577,10 @@ def phase_main_path(dev, report):
     from repro_torch.api import (FedGenGMM, FitConfig, GMMEstimator,
                                  log_prob, score)
     from repro_torch.core.metrics import auc_pr
-    from repro_torch.core.partition import partition
     from repro_torch.fed.ledger import gmm_payload_floats
 
     t0 = time.perf_counter()
-    ds = mnist_data()
-    split = partition(np.random.default_rng(0), ds.x_train, ds.y_train,
-                      CLIENTS, "dirichlet", 0.5)
+    ds, split = mnist_data(), main_split()
     log(f"phase 3: data {ds.x_train.shape}, split {split.data.shape}, client "
         f"sizes {int(split.sizes.min())}..{int(split.sizes.max())} "
         f"({time.perf_counter() - t0:.1f} s on the host)")
@@ -1248,6 +1297,7 @@ def phase_paper_comparison(dev, report):
                 f"the largest ({split.sizes[large]} rows) "
                 f"{ {k: round(v, 1) for k, v in bics[large].items()} }")
         table[name] = (comm, wall)
+        report.setdefault("paper_runs", {})[name] = res
     fg, fg_wall = table["FedGenGMM BIC"]
     log("phase 7: Table 4 on the card: FedGenGMM (BIC) 1 round, "
         f"{fg.uplink_floats} uplink floats, {fg_wall:.3f} s; " + "; ".join(
@@ -2133,6 +2183,33 @@ def mnist_data():
 
 
 @functools.lru_cache(maxsize=None)
+def main_split():
+    """Phase 3's split: the 60,000 rows over 20 Dirichlet(0.5) clients."""
+    import numpy as np
+    from repro_torch.core.partition import partition
+    ds = mnist_data()
+    return partition(np.random.default_rng(0), ds.x_train, ds.y_train,
+                     CLIENTS, "dirichlet", 0.5)
+
+
+@functools.lru_cache(maxsize=None)
+def continual_windows():
+    """Phase 11 (e)'s windows: (rows, split) of each of CONTINUAL_WINDOWS
+    consecutive slices of the 60,000 rows, window w split over the 20
+    clients by Dirichlet(0.5) from seed w."""
+    import numpy as np
+    from repro_torch.core.partition import partition
+    ds = mnist_data()
+    n = N_TRAIN // CONTINUAL_WINDOWS
+    out = []
+    for w in range(CONTINUAL_WINDOWS):
+        x, y = ds.x_train[w * n:(w + 1) * n], ds.y_train[w * n:(w + 1) * n]
+        out.append((x, partition(np.random.default_rng(w), x, y, CLIENTS,
+                                 "dirichlet", 0.5)))
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
 def async_population():
     """(e)'s padded split: the 60,000 rows over 1,000 Dirichlet(0.5)
     clients."""
@@ -2595,6 +2672,365 @@ def phase_uplink_async(dev, report):
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# ----------------------------------------------------------------------
+# Phase 11: the mesh runtime, continual FedGenGMM and split-merge EM
+# ----------------------------------------------------------------------
+
+SEAM_ROUNDS = 4                    # (c): test_fed_transforms.py's budget
+CONTINUAL_WINDOWS, CONTINUAL_MEMORY = 3, 0.5
+# (e)'s refit once the old global model joins as one more client
+CONTINUAL_SYNTH = H * (CLIENTS + 1) * K
+# (b): phase 7's runs, the kernel each round launches and how often
+MESH_RUNS = (("DEM fed-kmeans", "estep_stats", 1),
+             ("FedEM p=0.5 e=2", "estep_stats", 2),
+             ("FedKMeans", "kmeans_sweep_stats", 1))
+
+
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` prints them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+            else f"nvidia-smi failed: {smi.stderr.strip()}")
+
+
+def world_one_mesh(dev, workdir):
+    """A process group of one rank over a ``file://`` store, and its 1-D
+    ``"data"`` mesh: NCCL on the card (gloo where the phase is rehearsed
+    on the CPU). NCCL's bootstrap is pointed at the loopback interface,
+    the one a single rank needs and every machine has."""
+    import os
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    import torch
+    if dev.type == "cuda":
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"file://{workdir}/store", rank=0,
+                            world_size=1)
+    mesh = init_device_mesh(dev.type, (1,), mesh_dim_names=("data",))
+    # NCCL builds its communicator at the first collective: take it here
+    probe = torch.ones(1, device=dev)
+    dist.all_reduce(probe, group=mesh.get_group("data"))
+    check(float(probe) == 1.0, f"an all-reduce of 1 at world size 1 gave "
+          f"{float(probe)}")
+    log(f"phase 11: {dist.get_backend()} process group of one rank, its "
+        f"\"data\" mesh and first all-reduce in "
+        f"{time.perf_counter() - t0:.3f} s (NCCL_SOCKET_IFNAME="
+        f"{os.environ.get('NCCL_SOCKET_IFNAME')})")
+    return mesh
+
+
+class MeshReduces:
+    """Within a ``with`` block, each ``ShardedClients.reduce_clients`` call's
+    round-kernel launches and collective calls (``calls``)."""
+
+    def __enter__(self):
+        from repro_torch.fed.runtime import ShardedClients
+        self.calls, inner = [], ShardedClients.reduce_clients
+        self._inner = inner
+
+        def reduce_clients(backend, *args, **kwargs):
+            before, coll = kernel_counts(), ShardedClients.collectives
+            out = inner(backend, *args, **kwargs)
+            after = kernel_counts()
+            self.calls.append(dict(
+                {k: after[k] - before[k] for k in ROUND_KERNELS},
+                collectives=ShardedClients.collectives - coll))
+            return out
+
+        ShardedClients.reduce_clients = reduce_clients
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.fed.runtime import ShardedClients
+        ShardedClients.reduce_clients = self._inner
+        return False
+
+
+def mesh_fedgen(dev, report, mesh):
+    """(a) fedgen_sharded against fedgengmm_cfg: the same bits, one
+    all-gather."""
+    import torch
+    from repro_torch.api import FitConfig
+    from repro_torch.core.fedgen import fedgengmm_cfg
+    from repro_torch.distributed import fedgen_sharded
+    from repro_torch.fed.runtime import ShardedClients
+
+    split, cfg = report["split"], FitConfig(device=dev.type)
+    walls = {"single": [], "sharded": []}
+    for side in ("single", "sharded", "sharded", "single"):
+        # the phase's counts run on: each run's launches are a difference
+        before, coll = kernel_counts(), ShardedClients.collectives
+        if side == "single":
+            single, wall = synced(lambda: fedgengmm_cfg(
+                0, split, cfg, k_clients=K, k_global=K, h=H))
+        else:
+            sharded, wall = synced(lambda: fedgen_sharded(
+                mesh, 0, split.data, split.mask, K, K, h=H, config=cfg))
+            after = kernel_counts()
+            launches = {k: after[k] - before[k] for k in after}
+            collectives = ShardedClients.collectives - coll
+        walls[side].append(wall)
+    locals_same = torch.equal(sharded.local_means, torch.stack(
+        [g.means for g in single.local_gmms]))
+    check(same_bits(sharded.global_gmm, single.global_gmm) and locals_same,
+          "(a) fedgen_sharded differs from fedgengmm_cfg")
+    check(collectives == 1,
+          f"(a) {collectives} collective calls, not one all-gather")
+    check(launches["estep_stats"] > 0 and launches["kmeans_sweep_stats"] > 0,
+          f"(a) launches {launches}")
+    ll, auc = quality(sharded.global_gmm, report, cfg)
+    log(f"phase 11 (a): fedgen_sharded at world size 1 bit-identical to "
+        f"fedgengmm_cfg, local fits and global model (avg loglik {ll:.6f}, "
+        f"AUC-PR {auc:.6f}); one all-gather of {CLIENTS} x ({K} + 2 x {K} "
+        f"x {D} + 1) floats; wall in turns single {walls['single'][0]:.3f} "
+        f"/ {walls['single'][1]:.3f} s, sharded {walls['sharded'][0]:.3f} / "
+        f"{walls['sharded'][1]:.3f} s; launches {launches}")
+    return {"FedGenGMM": (min(walls["single"]), min(walls["sharded"]))}
+
+
+def mesh_iterative(dev, report, mesh):
+    """(b) DEM (fed-kmeans init; and dem_sharded from phase 7's centers),
+    FedEM (participation 0.5, 2 local epochs) and FedKMeans sharded, each
+    timed in turns with its single-process run (both with their inits; the
+    sharded side also copies its clients from the host): phase 7's rounds,
+    bits and Table 4 ledger, one all-reduce and the round kernels'
+    launches a round."""
+    from repro_torch.api import DEM, FedEM, FedKMeans, FitConfig
+    from repro_torch.convert import split_to_clients
+    from repro_torch.core.config import derive_seed
+    from repro_torch.core.dem import DEMStrategy, fed_kmeans_centers
+    from repro_torch.distributed import (dem_sharded, fed_kmeans_sharded,
+                                         fedem_sharded)
+    from repro_torch.fed import run_rounds
+
+    split, cfg = report["split"], FitConfig(device=dev.type)
+    data, mask = split.data, split.mask
+    clients = split_to_clients(split, dev)
+    centers = fed_kmeans_centers(derive_seed(0, "init"), clients, K)
+
+    def model(res):
+        return res.centers if hasattr(res, "centers") else res.global_gmm
+
+    arms = {
+        # over the mesh DEM is timed with its scheme init, as the facade
+        # runs it; dem_sharded (from given centers) is held to it below
+        "DEM fed-kmeans": (
+            lambda: DEM(K, init="fed-kmeans", config=cfg).run(clients,
+                                                              seed=0),
+            lambda: run_rounds(DEMStrategy(k=K), split, seed=0, mesh=mesh,
+                               max_rounds=200)),
+        "FedEM p=0.5 e=2": (
+            lambda: FedEM(K, participation=0.5, local_epochs=2,
+                          config=cfg).run(clients, seed=0),
+            lambda: fedem_sharded(mesh, 0, data, mask, K, participation=0.5,
+                                  local_epochs=2, config=cfg)),
+        "FedKMeans": (
+            lambda: FedKMeans(K, config=cfg).run(clients, seed=0),
+            lambda: fed_kmeans_sharded(mesh, 0, data, mask, K, config=cfg))}
+    walls = {}
+    for name, kern, per_round in MESH_RUNS:
+        phase7 = report["paper_runs"][name]
+        single, sharded = arms[name]
+        times = {single: [], sharded: []}
+        for fn in (single, sharded, sharded, single):
+            with MeshReduces() as mr:
+                out, wall = synced(fn)
+            times[fn].append(wall)
+            if fn is sharded:
+                res, calls = out, mr.calls
+            else:
+                check(same_bits(model(out), model(phase7)),
+                      f"(b) single-process {name} differs from phase 7")
+        rounds = res.n_rounds
+        if name.startswith("DEM"):
+            gmm, dem_rounds = dem_sharded(mesh, 0, data, mask, K, centers,
+                                          config=cfg)
+            check(same_bits(gmm, res.global_gmm) and dem_rounds == rounds,
+                  "(b) dem_sharded from phase 7's centers differs")
+        post = 1 if name == "FedKMeans" else 0
+        check(same_bits(model(res), model(phase7))
+              and rounds == phase7.n_rounds and res.comm == phase7.comm,
+              f"(b) sharded {name}: {rounds} rounds against phase 7's "
+              f"{phase7.n_rounds}, ledger {res.comm} against {phase7.comm}, "
+              f"or other bits")
+        check(len(calls) == rounds + post,
+              f"(b) sharded {name}: {len(calls)} reduces for {rounds} "
+              f"rounds")
+        check(all(c["collectives"] == 1 for c in calls),
+              f"(b) sharded {name}: collective calls a reduce "
+              f"{sorted({c['collectives'] for c in calls})}")
+        check(all(c[kern] == per_round for c in calls[:rounds]),
+              f"(b) sharded {name}: {kern} launches a round "
+              f"{sorted({c[kern] for c in calls[:rounds]})}, not "
+              f"{per_round}")
+        walls[name] = (min(times[single]), min(times[sharded]))
+        log(f"phase 11 (b): {name} sharded: {rounds} rounds, phase 7's bits "
+            f"and Table 4 ledger ({res.comm.uplink_floats} uplink floats, "
+            f"{res.comm.downlink_floats} downlink), one all-reduce and "
+            f"{per_round} {kern} a round; wall in turns single "
+            f"{times[single][0]:.3f} / {times[single][1]:.3f} s, sharded "
+            f"{times[sharded][0]:.3f} / {times[sharded][1]:.3f} s")
+    return walls
+
+
+def mesh_seam_async(dev, report, mesh):
+    """(c) sharded DEM over SEAM_ROUNDS rounds: Identity and PairwiseMask
+    bit-identical to no transform, GaussianDP(2, rounds=4) not; (d)
+    run_async(mesh=) sync-equivalent against run_rounds(mesh=) and the
+    single-process run_rounds."""
+    from repro_torch.api import FitConfig
+    from repro_torch.convert import split_to_clients
+    from repro_torch.core.config import derive_seed
+    from repro_torch.core.dem import DEMStrategy, fed_kmeans_centers
+    from repro_torch.distributed import dem_sharded
+    from repro_torch.fed import (GaussianDP, Identity, PairwiseMask,
+                                 run_async, run_rounds)
+    from repro_torch.fed.runtime import ShardedClients
+
+    split = report["split"]
+    cfg = FitConfig(device=dev.type, max_iter=SEAM_ROUNDS)
+    centers = fed_kmeans_centers(derive_seed(0, "init"),
+                                 split_to_clients(split, dev), K)
+    out, walls = {}, {}
+    for name, t in (("none", None), ("Identity", Identity()),
+                    ("PairwiseMask", PairwiseMask()),
+                    ("GaussianDP", GaussianDP(epsilon=2.0,
+                                              rounds=SEAM_ROUNDS))):
+        ShardedClients.collectives = 0
+        (gmm, rounds), walls[name] = synced(lambda: dem_sharded(
+            mesh, 0, split.data, split.mask, K, centers, config=cfg,
+            transform=t))
+        out[name] = (gmm, rounds, ShardedClients.collectives)
+    base = out["none"][0]
+    check(same_bits(out["Identity"][0], base)
+          and same_bits(out["PairwiseMask"][0], base),
+          "(c) sharded DEM under Identity or PairwiseMask differs")
+    check(not same_bits(out["GaussianDP"][0], base),
+          "(c) sharded DEM under GaussianDP did not move")
+    check(out["PairwiseMask"][2] == 2 + 2 * out["PairwiseMask"][1],
+          f"(c) masked collectives {out['PairwiseMask'][2]}")
+    log(f"phase 11 (c): sharded DEM, {SEAM_ROUNDS} rounds: Identity and "
+        f"PairwiseMask bit-identical to no transform, GaussianDP(2, rounds="
+        f"{SEAM_ROUNDS}) not; collective calls (2 for the init) "
+        + ", ".join(f"{n} {c}" for n, (_, _, c) in out.items())
+        + "; walls " + ", ".join(f"{n} {w:.3f} s" for n, w in walls.items()))
+
+    strat = DEMStrategy(k=K, tol=0.0)
+    state0 = strat.state_from_gmm(report["gmm"])
+    kw = dict(state0=state0, max_rounds=TIMED_ROUNDS)
+    ra, t_async = synced(lambda: run_async(strat, split, mesh=mesh, **kw))
+    rs, t_sync = synced(lambda: run_rounds(strat, split, mesh=mesh, **kw))
+    r1 = run_rounds(strat, split, device=dev, **kw)
+    check(same_bits(ra.global_gmm, rs.global_gmm)
+          and same_bits(rs.global_gmm, r1.global_gmm)
+          and ra.n_rounds == rs.n_rounds == r1.n_rounds,
+          "(d) run_async(mesh=) differs from run_rounds(mesh=) or from the "
+          "single process")
+    log(f"phase 11 (d): run_async(mesh=) sync-equivalent bit-identical to "
+        f"run_rounds(mesh=) and to the single-process run_rounds over "
+        f"{ra.n_rounds} rounds; wall {t_async:.3f} s against {t_sync:.3f} s")
+
+
+def mesh_continual(dev, report):
+    """(e) continual FedGenGMM over three windows of the 60,000 rows, each
+    split over the 20 clients: one round a window, each window's rows
+    scored after its round."""
+    import numpy as np
+    from repro_torch.api import FitConfig, score
+    from repro_torch.core.continual import continual_round, init_state
+
+    ds, cfg = report["ds"], FitConfig(device=dev.type)
+    state, lines = init_state(), []
+    for w, (x, split) in enumerate(continual_windows()):
+        state, wall = synced(lambda: continual_round(
+            w, state, split.data, split.mask, split.sizes, k_clients=K,
+            k_global=K, h=H, memory=CONTINUAL_MEMORY, device=dev.type))
+        ll = float(score(state.global_gmm, x, config=cfg))
+        check(np.isfinite(ll) and state.rounds_total == w + 1
+              and state.window == w + 1, f"(e) window {w}: {state[1:]}")
+        lines.append(f"window {w} ({split.data.shape}) avg loglik "
+                     f"{ll:.6f}, {wall:.3f} s")
+    ll_all, auc = quality(state.global_gmm, report, cfg)
+    log(f"phase 11 (e): continual FedGenGMM, memory {CONTINUAL_MEMORY}, "
+        f"{state.rounds_total} rounds for {state.window} windows: "
+        + "; ".join(lines) + f"; all {len(ds.x_train):,} rows "
+        f"{ll_all:.6f}, AUC-PR {auc:.6f}")
+
+
+def mesh_split_merge(dev, report):
+    """(f) split_merge_fit on each of the 20 clients at K = 30 against the
+    plain fit (never below it by more than 1e-5), the walls, then the
+    split-merge locals aggregated and scored."""
+    from repro_torch.api import FitConfig
+    from repro_torch.core.em import fit_gmm
+    from repro_torch.core.fedgen import aggregate
+    from repro_torch.core.splitmerge import split_merge_fit
+
+    split, cfg = report["split"], FitConfig(device=dev.type)
+    rows = [split.data[c, :int(split.sizes[c])] for c in range(CLIENTS)]
+    plain, t_plain = synced(lambda: [
+        fit_gmm(c, x, K, device=dev.type) for c, x in enumerate(rows)])
+    sm, t_sm = synced(lambda: [
+        split_merge_fit(c, x, K, device=dev.type)
+        for c, x in enumerate(rows)])
+    gains = [float(s.log_likelihood) - float(p.log_likelihood)
+             for s, p in zip(sm, plain)]
+    check(min(gains) >= -1e-5, f"(f) split-merge below the plain fit: "
+          f"{min(gains)}")
+    res, _ = aggregate(0, [r.gmm for r in sm], split.sizes, h=H, k_global=K,
+                       device=dev.type)
+    ll, auc = quality(res.gmm, report, cfg)
+    log(f"phase 11 (f): split_merge_fit on {CLIENTS} clients at K = {K}: "
+        f"avg loglik gain over the plain fit {min(gains):.3e}..."
+        f"{max(gains):.3e} ({sum(g > 1e-6 for g in gains)} clients "
+        f"improved); wall {t_sm:.3f} s against {t_plain:.3f} s plain; "
+        f"aggregated: avg loglik {ll:.6f}, AUC-PR {auc:.6f} (phase 3: "
+        f"{report['ll']:.6f}, {report['auc']:.6f})")
+
+
+def phase_mesh_extensions(dev, report):
+    """Phase 11: the mesh runtime at world size 1 (NCCL on the card),
+    continual FedGenGMM and split-merge EM on phase 3's data, with every
+    kernel's launches over the phase."""
+    import tempfile
+    from pathlib import Path as _Path
+    import torch
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = world_one_mesh(dev, _Path(tmp))
+        try:
+            t0 = time.perf_counter()
+            walls = mesh_fedgen(dev, report, mesh)
+            walls.update(mesh_iterative(dev, report, mesh))
+            mesh_seam_async(dev, report, mesh)
+            log(f"phase 11 (a)-(d): took {time.perf_counter() - t0:.1f} s")
+        finally:
+            dist.destroy_process_group()
+    for part, fn in (("e", mesh_continual), ("f", mesh_split_merge)):
+        t0 = time.perf_counter()
+        fn(dev, report)
+        log(f"phase 11 ({part}): took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    total = kernel_counts()
+    for name in PATH_KERNELS:
+        check(total[name] > 0, f"kernel {name} was not launched in phase 11")
+    for entry in report["kernels"]:
+        entry["launches_by_path"]["mesh_continual_splitmerge"] = \
+            total[entry["name"]]
+    log(f"phase 11: walls at world size 1 on {card_line()}, single process "
+        f"/ sharded: " + "; ".join(f"{n} {a:.3f} / {b:.3f} s"
+                                   for n, (a, b) in walls.items()))
+    log(f"phase 11: launches {total}; took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: the repository (src/repro_torch) is not beside "
@@ -2610,11 +3046,7 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     dev = resolve_device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-        else f"nvidia-smi failed: {smi.stderr.strip()}")
+    log(card_line())
     log(f"phase 1: python {sys.version.split()[0]}, torch {torch.__version__}"
         f", CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
         f"capability {torch.cuda.get_device_capability(0)}")
@@ -2642,7 +3074,9 @@ def main() -> int:
               ("paper comparison", phase_paper_comparison),
               ("serving", phase_serving),
               ("out of core", phase_out_of_core),
-              ("uplink transforms and async rounds", phase_uplink_async)]
+              ("uplink transforms and async rounds", phase_uplink_async),
+              ("mesh runtime, continual and split-merge",
+               phase_mesh_extensions)]
     for name, fn in phases:
         if failures:
             log(f"skipping phase {name!r} after a failure")

@@ -228,6 +228,20 @@ class FitConfig:
             raise ValueError(f"device must be 'cuda' or 'cpu', "
                              f"got {self.device!r}")
 
+    @classmethod
+    def from_legacy(cls, *, backend: str = "auto", chunk_size=None,
+                    covariance_type: str = "diag", reg_covar: float = 1e-6,
+                    tol: float = 1e-3, max_iter: int = 200,
+                    init: str = "auto", seed: int = 0,
+                    device: str = "cuda") -> "FitConfig":
+        """A config from the legacy keyword surface, where
+        ``chunk_size=None`` meant what ``"auto"`` now spells out."""
+        return cls(backend=backend,
+                   chunk_size="auto" if chunk_size is None else chunk_size,
+                   covariance_type=covariance_type, reg_covar=reg_covar,
+                   tol=float(tol), max_iter=max_iter, init=init, seed=seed,
+                   device=device)
+
     def resolve_chunk(self, source: bool):
         """The engine chunk for one input type: under "auto", ``None`` (full
         batch) on resident arrays and :data:`DEFAULT_SOURCE_CHUNK` on

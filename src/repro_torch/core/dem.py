@@ -47,8 +47,18 @@ class DEMResult(NamedTuple):
     comm: CommStats
 
 
-# DEM init schemes: paper numbering -> FitConfig init-strategy names.
+# DEM init schemes: paper numbering <-> FitConfig init-strategy names.
 INIT_SCHEME_NAMES = {1: "separated", 2: "pilot", 3: "fed-kmeans"}
+INIT_SCHEMES = {v: k for k, v in INIT_SCHEME_NAMES.items()}
+
+
+def _legacy_init_name(init) -> str:
+    """The legacy knob: a paper scheme number (1/2/3) or its FitConfig
+    name; anything else raises."""
+    name = INIT_SCHEME_NAMES.get(init, init)
+    if name not in INIT_SCHEMES:
+        raise ValueError(f"unknown DEM init scheme {init}")
+    return name
 
 
 def _resolve_init(init: str, sources: bool = False) -> str:
@@ -125,15 +135,23 @@ def pilot_subset_centers(seed: int, split, k: int,
     return res.gmm.means
 
 
+def _sharded(backend):
+    """The backend if it is a ``ShardedClients`` (its collectives then carry
+    the init's reductions), else None."""
+    return backend if backend.kind == "sharded" else None
+
+
 def fed_kmeans_centers(seed: int, clients, k: int,
                        chunk_size: Optional[int] = None,
                        assign_backend: str = "auto") -> torch.Tensor:
     """Init 3: one-shot federated k-means global centers over resident
-    clients (``SplitClients``: data and mask tensors on the device)."""
+    clients (``SplitClients``: data and mask tensors on the device; or
+    ``ShardedClients``, each rank's block with one all-gather)."""
     return federated_kmeans(seed, clients.data, k,
                             client_weights=clients.mask,
                             chunk_size=chunk_size,
-                            assign_backend=assign_backend)
+                            assign_backend=assign_backend,
+                            sharded=_sharded(clients))
 
 
 # ----------------------------------------------------------------------
@@ -197,7 +215,8 @@ class DEMStrategy:
         gmm0 = init_from_means(centers, data.reshape(-1, d),
                                mask.reshape(-1),
                                covariance_type=self.covariance_type,
-                               reg_covar=self.reg_covar)
+                               reg_covar=self.reg_covar,
+                               sharded=_sharded(backend))
         return self.state_from_gmm(gmm0)
 
     def _init_sources(self, seed: int, backend) -> DEMState:
@@ -306,3 +325,17 @@ def dem_cfg(seed: int, clients, config: FitConfig, k: int, transform=None,
     kw = dict(seed=seed, device=config.resolve_device(),
               max_rounds=config.resolve_max_iter("em"), transform=transform)
     return run_policy(strategy, clients, async_policy, **kw)
+
+
+def dem(seed: int, split, k: int, init=3, max_rounds: int = 200,
+        tol: float = 1e-3, reg_covar: float = 1e-6,
+        estep_backend: str = "auto", chunk_size: Optional[int] = None,
+        covariance_type: str = "diag", device="cuda") -> DEMResult:
+    """Legacy keyword surface of :func:`dem_cfg` (prefer
+    ``repro_torch.api.DEM``). ``init`` takes the paper's scheme numbers
+    1/2/3 or their FitConfig names."""
+    cfg = FitConfig.from_legacy(
+        backend=estep_backend, chunk_size=chunk_size,
+        covariance_type=covariance_type, reg_covar=reg_covar, tol=tol,
+        max_iter=max_rounds, init=_legacy_init_name(init), device=device)
+    return dem_cfg(seed, split, cfg, k)

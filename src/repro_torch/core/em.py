@@ -508,14 +508,18 @@ def init_from_means(means: torch.Tensor, x: torch.Tensor,
                     sample_weight: Optional[torch.Tensor] = None,
                     covariance_type: str = "diag",
                     reg_covar: float = 1e-6,
-                    chunk_size: Optional[int] = None) -> GMM:
+                    chunk_size: Optional[int] = None,
+                    sharded=None) -> GMM:
     """Init with given centers, uniform weights and the data's variance as
     every component's covariance: the DEM baselines' init, where the server
     proposes centers without seeing client data. x (N, d) with the
     weighted two-pass variance (zero-weight rows count for nothing), or a
     :class:`DataSource` with one-pass streamed moments on the centers'
     device (E[x²] - E[x]², clamped at zero; ``chunk_size`` applies to
-    sources only)."""
+    sources only). ``sharded`` (a
+    :class:`repro_torch.fed.runtime.ShardedClients`) makes x its rank's
+    rows: each pass's sums are then all-reduced over the ranks (two
+    collectives)."""
     k, d = means.shape
     if isinstance(x, DataSource):
         require_array_weights(sample_weight,
@@ -526,11 +530,15 @@ def init_from_means(means: torch.Tensor, x: torch.Tensor,
         var = torch.clamp(ss / wsum - mean * mean, min=0.0) + reg_covar
         dtype = means.dtype
     else:
+        def total(t):
+            return t if sharded is None else sharded.all_reduce(t)
+
         w = _weights(x, sample_weight)
-        wsum = torch.clamp(w.sum(), min=1e-12)
-        mean = torch.sum(x * w.unsqueeze(-1), dim=0) / wsum
-        var = (torch.sum((x - mean) ** 2 * w.unsqueeze(-1), dim=0) / wsum
-               + reg_covar)
+        s, cnt = total((torch.sum(x * w.unsqueeze(-1), dim=0), w.sum()))
+        wsum = torch.clamp(cnt, min=1e-12)
+        mean = s / wsum
+        var = (total(torch.sum((x - mean) ** 2 * w.unsqueeze(-1), dim=0))
+               / wsum + reg_covar)
         dtype, means = x.dtype, means.to(x)
     weights = torch.full((k,), 1.0 / k, dtype=dtype, device=means.device)
     if covariance_type == "diag":
@@ -671,6 +679,21 @@ def fit_gmm_cfg(seed, x, k: int, config: FitConfig,
     return EMResult(gmm, ll, it, converged)
 
 
+def fit_gmm(seed, x, k: int, sample_weight=None,
+            covariance_type: str = "diag", max_iter: int = 200,
+            tol: float = 1e-3, reg_covar: float = 1e-6,
+            init_gmm: Optional[GMM] = None, estep_backend: str = "auto",
+            chunk_size: Optional[int] = None, device="cuda") -> EMResult:
+    """Legacy keyword surface of :func:`fit_gmm_cfg` (prefer
+    ``repro_torch.api.GMMEstimator``): the loose knobs folded into one
+    :class:`FitConfig` by :meth:`FitConfig.from_legacy`."""
+    cfg = FitConfig.from_legacy(
+        backend=estep_backend, chunk_size=chunk_size,
+        covariance_type=covariance_type, reg_covar=reg_covar, tol=tol,
+        max_iter=max_iter, device=device)
+    return fit_gmm_cfg(seed, x, k, cfg, sample_weight, init_gmm)
+
+
 def fit_gmm_bic_cfg(seed: int, x, k_candidates: Sequence[int],
                     config: FitConfig, sample_weight=None
                     ) -> tuple[EMResult, dict[int, float]]:
@@ -699,3 +722,18 @@ def fit_gmm_bic_cfg(seed: int, x, k_candidates: Sequence[int],
         if b < best_bic:
             best, best_bic = res, b
     return best, bics
+
+
+def fit_gmm_bic(seed: int, x, k_candidates: Sequence[int],
+                sample_weight=None, covariance_type: str = "diag",
+                max_iter: int = 200, tol: float = 1e-3,
+                reg_covar: float = 1e-6, estep_backend: str = "auto",
+                chunk_size: Optional[int] = None, device="cuda"
+                ) -> tuple[EMResult, dict[int, float]]:
+    """Legacy keyword surface of :func:`fit_gmm_bic_cfg` (prefer
+    ``repro_torch.api.GMMEstimator`` with ``k_candidates``)."""
+    cfg = FitConfig.from_legacy(
+        backend=estep_backend, chunk_size=chunk_size,
+        covariance_type=covariance_type, reg_covar=reg_covar, tol=tol,
+        max_iter=max_iter, device=device)
+    return fit_gmm_bic_cfg(seed, x, k_candidates, cfg, sample_weight)

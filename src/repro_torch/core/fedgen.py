@@ -58,6 +58,19 @@ def train_locals_cfg(seed: int, data: torch.Tensor, mask: torch.Tensor,
     return fit_gmm_cfg(seed, data, k, config, sample_weight=mask)
 
 
+def train_locals(seed: int, data, mask, k: int, max_iter: int = 200,
+                 tol: float = 1e-3, reg_covar: float = 1e-6,
+                 covariance_type: str = "diag", estep_backend: str = "auto",
+                 chunk_size: Optional[int] = None,
+                 device="cuda") -> EMResult:
+    """Legacy keyword surface of :func:`train_locals_cfg`."""
+    cfg = FitConfig.from_legacy(
+        backend=estep_backend, chunk_size=chunk_size,
+        covariance_type=covariance_type, reg_covar=reg_covar, tol=tol,
+        max_iter=max_iter, device=device)
+    return train_locals_cfg(seed, data, mask, k, cfg)
+
+
 def train_locals_bic_cfg(seed: int, data: torch.Tensor, mask: torch.Tensor,
                          k_candidates: Sequence[int], config: FitConfig
                          ) -> tuple[list[EMResult], list[dict[int, float]]]:
@@ -91,6 +104,20 @@ def train_locals_bic_cfg(seed: int, data: torch.Tensor, mask: torch.Tensor,
                 best[m] = EMResult(res.gmm[m], res.log_likelihood[m],
                                    res.n_iter[m], res.converged[m])
     return best, bics
+
+
+def train_locals_bic(seed: int, data, mask, k_candidates: Sequence[int],
+                     max_iter: int = 200, tol: float = 1e-3,
+                     reg_covar: float = 1e-6, covariance_type: str = "diag",
+                     estep_backend: str = "auto",
+                     chunk_size: Optional[int] = None, device="cuda"
+                     ) -> tuple[list[EMResult], list[dict[int, float]]]:
+    """Legacy keyword surface of :func:`train_locals_bic_cfg`."""
+    cfg = FitConfig.from_legacy(
+        backend=estep_backend, chunk_size=chunk_size,
+        covariance_type=covariance_type, reg_covar=reg_covar, tol=tol,
+        max_iter=max_iter, device=device)
+    return train_locals_bic_cfg(seed, data, mask, k_candidates, cfg)
 
 
 def train_locals_sources_cfg(seed: int, sources: Sequence[DataSource],
@@ -151,6 +178,22 @@ def aggregate_cfg(seed: int, local_gmms: list[GMM], sizes,
     return res, s
 
 
+def aggregate(seed: int, local_gmms: list[GMM], sizes, h: int = 100,
+              k_global: Optional[int] = None,
+              k_candidates: Optional[Sequence[int]] = None,
+              max_iter: int = 200, tol: float = 1e-3,
+              reg_covar: float = 1e-6, covariance_type: str = "diag",
+              estep_backend: str = "auto", chunk_size: Optional[int] = None,
+              synthetic: str = "resident", device="cuda"):
+    """Legacy keyword surface of :func:`aggregate_cfg`."""
+    cfg = FitConfig.from_legacy(
+        backend=estep_backend, chunk_size=chunk_size,
+        covariance_type=covariance_type, reg_covar=reg_covar, tol=tol,
+        max_iter=max_iter, device=device)
+    return aggregate_cfg(seed, local_gmms, sizes, cfg, k_global, h=h,
+                         k_candidates=k_candidates, synthetic=synthetic)
+
+
 @dataclasses.dataclass(frozen=True)
 class FedGenStrategy:
     """Algorithm 4.1 as a one-shot strategy of the federation runtime: the
@@ -182,6 +225,10 @@ class FedGenStrategy:
         """The single round. With an uplink ``transform``, client i's
         ``(gmm, |D_c|)`` block is released under the round-0 key ``tkey``
         (its draws its own) before the merge."""
+        if backend.kind == "sharded":
+            raise ValueError(
+                "FedGenGMM over a mesh runs through "
+                "repro_torch.distributed.fedgen_sharded")
         if backend.kind == "sources":
             local_results = train_locals_sources_cfg(
                 state["seed_local"], backend.sources, self.config,
@@ -251,3 +298,22 @@ def fedgengmm_cfg(seed: int, clients, config: FitConfig,
         h=h, synthetic=synthetic)
     return run_rounds(strategy, clients, seed=seed,
                       device=config.resolve_device(), transform=transform)
+
+
+def fedgengmm(seed: int, split, k_clients: Optional[int] = None,
+              k_global: Optional[int] = None,
+              k_candidates: Optional[Sequence[int]] = None, h: int = 100,
+              max_iter: int = 200, tol: float = 1e-3,
+              reg_covar: float = 1e-6, covariance_type: str = "diag",
+              estep_backend: str = "auto", chunk_size: Optional[int] = None,
+              synthetic: str = "resident", device="cuda") -> FedGenResult:
+    """Legacy keyword surface of :func:`fedgengmm_cfg` (prefer
+    ``repro_torch.api.FedGenGMM``): fix ``k_clients``, or pass
+    ``k_candidates`` for per-client BIC selection."""
+    cfg = FitConfig.from_legacy(
+        backend=estep_backend, chunk_size=chunk_size,
+        covariance_type=covariance_type, reg_covar=reg_covar, tol=tol,
+        max_iter=max_iter, device=device)
+    return fedgengmm_cfg(seed, split, cfg, k_clients=k_clients,
+                         k_global=k_global, k_candidates=k_candidates, h=h,
+                         synthetic=synthetic)

@@ -119,10 +119,24 @@ def _update_block(xb: torch.Tensor, wb: torch.Tensor, centers: torch.Tensor,
 Seed = Union[int, Sequence[int]]
 
 
+class MemberSeeds(tuple):
+    """Per-member seeds taken as they are: member b of a batch draws from
+    ``seed[b]`` itself. ``MemberSeeds(derive_seed(s, c) for c in ids)``
+    gives a batch of the clients ``ids`` the draws those clients get as
+    members of a batch of every client seeded with the integer ``s``, so a
+    rank of a sharded run fits its block as the whole split would."""
+
+
 def _member_seeds(seed: Seed, b: int) -> list[int]:
     """The seeds of the ``b`` members of a batch: ``derive_seed(seed, i)``
-    for an integer ``seed``; for a sequence of per-member seeds, the seed
-    member 0 of a lone call with ``seed[i]`` gets."""
+    for an integer ``seed``; :class:`MemberSeeds` as they are; for another
+    sequence of per-member seeds, the seed member 0 of a lone call with
+    ``seed[i]`` gets."""
+    if isinstance(seed, MemberSeeds):
+        seeds = list(seed)
+        if len(seeds) != b:
+            raise ValueError(f"{len(seeds)} member seeds for a batch of {b}")
+        return seeds
     if not isinstance(seed, (list, tuple)):
         return [derive_seed(seed, i) for i in range(b)]
     seeds = [derive_seed(int(s), 0) for s in seed]
@@ -369,7 +383,7 @@ def federated_kmeans(seed: int, client_data, k_global: int,
                      client_weights: Optional[torch.Tensor] = None,
                      max_iter: int = 100, chunk_size: Optional[int] = None,
                      assign_backend: str = "auto",
-                     device="cuda") -> torch.Tensor:
+                     device="cuda", sharded=None) -> torch.Tensor:
     """One-shot federated k-means (Dennis et al. '21) -> global centers
     ``(k_global, d)``.
 
@@ -380,7 +394,12 @@ def federated_kmeans(seed: int, client_data, k_global: int,
     client c then runs :func:`kmeans_source` on ``device``, seeded with
     ``derive_seed(seed, "local", c)``, and ragged sizes need no padding or
     weights. The server clusters the C·k_local local centers, each
-    weighted by its cluster size (seed ``derive_seed(seed, "server")``)."""
+    weighted by its cluster size (seed ``derive_seed(seed, "server")``).
+
+    ``sharded`` (a :class:`repro_torch.fed.runtime.ShardedClients`) makes
+    ``client_data`` its rank's block: the block's clients draw what they
+    would in the whole batch, and one all-gather brings every client's
+    centers and sizes to the (replicated) server step."""
     k_local = k_local or k_global
     if is_source_list(client_data):
         if client_weights is not None:
@@ -396,12 +415,17 @@ def federated_kmeans(seed: int, client_data, k_global: int,
         centers = torch.cat([r.centers for r in results])
         sizes = torch.cat([r.cluster_sizes for r in results])
     else:
-        local = kmeans(derive_seed(seed, "local"), client_data, k_local,
-                       client_weights, max_iter=max_iter,
-                       chunk_size=chunk_size, assign_backend=assign_backend)
-        d = client_data.shape[-1]
-        centers = local.centers.reshape(-1, d)
-        sizes = local.cluster_sizes.reshape(-1)
+        local_seed = derive_seed(seed, "local")
+        if sharded is not None:
+            local_seed = sharded.block_seeds(local_seed)
+        local = kmeans(local_seed, client_data, k_local, client_weights,
+                       max_iter=max_iter, chunk_size=chunk_size,
+                       assign_backend=assign_backend)
+        centers, sizes = local.centers, local.cluster_sizes
+        if sharded is not None:
+            centers, sizes = sharded.all_gather((centers, sizes))
+        centers = centers.reshape(-1, client_data.shape[-1])
+        sizes = sizes.reshape(-1)
     res = kmeans(derive_seed(seed, "server"), centers, k_global, sizes,
                  max_iter=max_iter, assign_backend=assign_backend)
     return res.centers

@@ -1,10 +1,11 @@
 """Federation runtime of the port: the communication ledger, cohort
 sampling, straggler and staleness policies, the uplink-transform seam (DP
 noise, stochastic quantization, pairwise secure-aggregation masks), the
-round loop (one-shot and iterative) and the buffered asynchronous driver
-with its client executor. The iterative baselines FedEM and FedKMeans are
-strategies in ``repro_torch.fed.strategies``; DEM sits beside its numerics
-in ``repro_torch.core.dem``.
+round loop (one-shot and iterative) over resident, source or mesh-sharded
+clients, and the buffered asynchronous driver with its client executor.
+The iterative baselines FedEM and FedKMeans are strategies in
+``repro_torch.fed.strategies``; DEM sits beside its numerics in
+``repro_torch.core.dem``.
 
 ``strategies`` loads lazily: it imports ``repro_torch.core.dem``, which
 imports this package's runtime, so loading it here would close a cycle."""
@@ -16,8 +17,9 @@ from repro_torch.fed.cohort import (ArrivalStragglers, CyclicSampler,
 from repro_torch.fed.ledger import (CommStats, RoundPayload, dtype_itemsize,
                                     gmm_payload_floats, label_payload_floats,
                                     payload_floats, stats_payload_floats)
-from repro_torch.fed.runtime import (FederationStrategy, SourceClients,
-                                     SplitClients, make_backend, run_rounds)
+from repro_torch.fed.runtime import (FederationStrategy, ShardedClients,
+                                     SourceClients, SplitClients,
+                                     make_backend, run_rounds)
 from repro_torch.fed.transforms import (Compose, GaussianDP, Identity,
                                         PairwiseMask, PayloadTransform,
                                         StochasticQuantize)
@@ -32,7 +34,8 @@ __all__ = [
     "UniformSampler", "make_sampler",
     "CommStats", "RoundPayload", "dtype_itemsize", "gmm_payload_floats",
     "label_payload_floats", "payload_floats", "stats_payload_floats",
-    "FederationStrategy", "SplitClients", "SourceClients", "make_backend",
+    "FederationStrategy", "SplitClients", "SourceClients", "ShardedClients",
+    "make_backend",
     "run_rounds",
     "PayloadTransform", "Identity", "GaussianDP", "StochasticQuantize",
     "PairwiseMask", "Compose",

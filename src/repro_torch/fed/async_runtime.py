@@ -143,8 +143,9 @@ _Update = collections.namedtuple(
 
 
 def run_async(strategy, clients, *, seed: int = 0, device="cuda",
-              state0=None, max_rounds: int = 1, sampler=None,
-              stragglers=None, transform=None,
+              state0=None, max_rounds: int = 1, mesh=None,
+              axis: str = "data", sampler=None, stragglers=None,
+              transform=None,
               buffer_size: Optional[int] = None, lookahead: int = 0,
               staleness=None, executor=None, max_workers: int = 0,
               progress=None):
@@ -167,8 +168,10 @@ def run_async(strategy, clients, *, seed: int = 0, device="cuda",
     source backend. ``progress(version, state, staleness_tuple)`` is called
     after every combine. Additive-only transforms (pairwise masks) need the
     whole cohort in one aggregate, so they are accepted only in the
-    sync-equivalent configuration."""
-    backend = make_backend(clients, device)
+    sync-equivalent configuration. ``mesh`` and ``axis`` shard the clients
+    over a ``DeviceMesh`` as in ``run_rounds``: every rank drives the same
+    schedule, and each group's reduce is one all-reduce."""
+    backend = make_backend(clients, device, mesh, axis)
     if getattr(strategy, "one_shot", False):
         raise ValueError(
             "run_async needs a round structure; one-shot strategies "

@@ -1,6 +1,6 @@
 """The federation runtime: one round loop under every federated algorithm
-of the port (port of ``repro/fed/runtime.py``: the resident split and the
-out-of-core source backends).
+of the port (port of ``repro/fed/runtime.py``: the resident split, the
+out-of-core source and the mesh-sharded backends).
 
 FedGenGMM, DEM, FedEM and FedKMeans all decompose into the same round::
 
@@ -33,8 +33,13 @@ sum modulo 2^32.
 The JAX package runs resident round loops as one jitted ``while_loop``.
 Here the loop runs on the host: one bootstrap round, then rounds while the
 strategy's ``keep_going`` holds, reading that one flag per round (one
-device sync), as the EM loop does (``core/em.py::_em_loop``). The JAX
-package's mesh backend (``ShardedClients``) is not ported.
+device sync), as the EM loop does (``core/em.py::_em_loop``).
+
+The JAX package shards a mesh axis inside one process (``shard_map``); the
+port's :class:`ShardedClients` is SPMD over processes instead: every rank
+of a ``torch.distributed`` ``DeviceMesh`` runs the same round loop over its
+own block of clients, and a round's reduce is one ``all_reduce``. Every
+rank then holds the same state, so the loops stay in step.
 """
 from __future__ import annotations
 
@@ -42,9 +47,12 @@ from typing import Any, Protocol, runtime_checkable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.core.config import is_source_list
-from repro_torch.core.em import _tree_add, _tree_map, wrap_int32
+from repro_torch.core.config import (derive_seed, is_source_list,
+                                     resolve_device)
+from repro_torch.core.em import (_tree_add, _tree_leaves, _tree_map,
+                                 wrap_int32)
 from repro_torch.fed.ledger import CommStats
 from repro_torch.fed.transforms import uplink_key
 
@@ -70,6 +78,53 @@ def _sum_clients(s: torch.Tensor) -> torch.Tensor:
     if s.dtype == torch.int32:
         return wrap_int32(torch.sum(s, dim=0, dtype=torch.int64))
     return torch.sum(s, dim=0)
+
+
+def _reduce_block(local_step, state, data, mask, lo: int, population: int,
+                  cohort, weights, transform, tparams, tkey):
+    """The round payload summed over one block of resident clients, the
+    global indices ``lo, lo + 1, ...`` of a ``population``: ``local_step``
+    on the block's clients (all of them, or the ``cohort`` members it
+    owns) as one batch with their global indices, the uplink ``transform``
+    per client against the round's members, the straggler ``weights`` (one
+    per member, multiplied in each leaf's dtype), and the sum over the
+    block.
+
+    A cohort's payloads are scattered into their slots of a zero-filled
+    (block, ...) tensor before the sum, so a cohort round adds in the same
+    order as the full round with the non-members' payloads zeroed. A block
+    that owns no member steps its first client, as a cohort of one, only
+    for the payload's structure and scatters nothing (the JAX package's
+    shard steps every member on every shard and gates them)."""
+    per = data.shape[0]
+    members = (np.arange(population) if cohort is None
+               else np.asarray(cohort))
+    if cohort is None:
+        pos = ids = np.arange(lo, lo + per)  # weights come one per client
+    else:
+        pos = np.flatnonzero((members >= lo) & (members < lo + per))
+        ids = members[pos]
+    # a block that owns no member steps its first client as a cohort of one
+    run, members = ((ids, members) if len(ids) else
+                    (np.asarray([lo]), np.asarray([lo])))
+    idx = torch.as_tensor(run, dtype=torch.int64, device=data.device)
+    if cohort is None:
+        p = local_step(state, data, mask, idx)
+    else:
+        loc = idx - lo
+        p = local_step(state, data[loc], mask[loc], idx)
+    if transform is not None:
+        # every client gets the round's shared key; its draws are its own
+        p = transform.apply(tkey, tparams, p, run, members)
+    if weights is not None and len(ids):
+        wt = torch.as_tensor(np.asarray(weights)[pos], device=data.device)
+        p = _tree_map(lambda s: s * wt.to(s.dtype).view(
+            (-1,) + (1,) * (s.ndim - 1)), p)
+    if cohort is not None:
+        loc, m = idx[:len(ids)] - lo, len(ids)
+        p = _tree_map(lambda s: s.new_zeros((per,) + s.shape[1:])
+                      .index_copy_(0, loc, s[:m]), p)
+    return _tree_map(_sum_clients, p)
 
 
 class SplitClients:
@@ -109,32 +164,11 @@ class SplitClients:
         global indices) only, as one batch; apply the uplink ``transform``
         (if any) to every client's payload; zero the dropped clients by
         ``weights`` (per member, multiplied in each leaf's dtype); and sum
-        the payloads over clients.
-
-        A cohort's m payloads are scattered into their population slots of
-        a zero-filled (C, ...) tensor before the sum over C, so a cohort
-        round adds in the same order as the full-population round with the
-        non-members' payloads zeroed."""
-        c = self.num_clients
-        ids = np.arange(c) if cohort is None else np.asarray(cohort)
-        if cohort is None:
-            idx = torch.arange(c, device=self.device)
-            per = local_step(state, self.data, self.mask, idx)
-        else:
-            idx = torch.as_tensor(ids, dtype=torch.int64,
-                                  device=self.device)
-            per = local_step(state, self.data[idx], self.mask[idx], idx)
-        if transform is not None:
-            # every client gets the round's shared key; its draws are its own
-            per = transform.apply(tkey, tparams, per, ids, ids)
-        if weights is not None:
-            wt = torch.as_tensor(np.asarray(weights), device=self.device)
-            per = _tree_map(lambda s: s * wt.to(s.dtype).view(
-                (-1,) + (1,) * (s.ndim - 1)), per)
-        if cohort is not None:
-            per = _tree_map(lambda s: s.new_zeros((c,) + s.shape[1:])
-                            .index_copy_(0, idx, s), per)
-        return _tree_map(_sum_clients, per)
+        the payloads over clients (:func:`_reduce_block` over one block of
+        every client)."""
+        return _reduce_block(local_step, state, self.data, self.mask, 0,
+                             self.num_clients, cohort, weights, transform,
+                             tparams, tkey)
 
 
 class SourceClients:
@@ -216,12 +250,147 @@ class SourceClients:
         return total
 
 
-def make_backend(clients, device):
-    """THE client dispatch: a :class:`SplitClients` passes through (moved to
-    ``device``), a padded split (any object with ``data``/``mask``/``sizes``
-    arrays, such as ``repro_torch.core.partition.ClientSplit``) is copied
-    onto ``device``, and a list of per-client DataSources becomes
-    :class:`SourceClients` on ``device``."""
+def _all_gather_into(out: torch.Tensor, buf: torch.Tensor, group) -> None:
+    gather = getattr(dist, "all_gather_single", None)
+    if gather is None:  # before all_gather_single took its name
+        gather = dist.all_gather_into_tensor
+    gather(out, buf, group=group)
+
+
+class ShardedClients:
+    """Clients sharded over the ``axis`` dimension of a ``DeviceMesh``
+    (``torch.distributed.device_mesh.init_device_mesh``), one process a
+    rank. Every rank is handed the same global ``data (C, N, d)`` and
+    ``mask (C, N)`` (numpy arrays or CPU tensors) and moves only its own
+    contiguous block of ``C / world`` clients, global indices ``ids``, to
+    its device: the current CUDA device on a ``"cuda"`` mesh (which raises
+    without CUDA), the CPU on a ``"cpu"`` mesh. ``C`` must divide by the
+    world size.
+
+    The host metadata (``num_clients``, ``sizes``, ``dim``) is the whole
+    population's, so strategies account and sample as over a split. A
+    round's reduce sums the rank's clients in ``SplitClients``' order and
+    makes one ``all_reduce`` of the float payload (a second, summed modulo
+    2^32, for int32 secure-aggregation leaves); at world size 1 it gives
+    ``SplitClients``' bits. ``ShardedClients.collectives`` counts the
+    collective calls of every sharded backend in the process (reset it by
+    assignment), as the kernels' wrappers count their launches."""
+
+    kind = "sharded"
+    split = None
+    collectives = 0
+
+    def __init__(self, data, mask, mesh, axis: str = "data"):
+        self.mesh, self.axis = mesh, axis
+        self.group = mesh.get_group(axis)
+        self.world = dist.get_world_size(self.group)
+        self.rank = mesh.get_local_rank(axis)
+        if mesh.device_type == "cuda":
+            resolve_device("cuda")
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        else:
+            self.device = resolve_device(mesh.device_type)
+        c = data.shape[0]
+        if c % self.world != 0:
+            raise ValueError(
+                f"{c} clients do not divide over the {self.world} ranks of "
+                f"mesh axis {axis!r}")
+        per = c // self.world
+        lo = self.rank * per
+        self.ids = np.arange(lo, lo + per)
+        self.num_clients = c
+        self.sizes = np.asarray(
+            torch.as_tensor(mask).sum(dim=1), dtype=np.int64)
+
+        def block(a):
+            return torch.as_tensor(a[lo:lo + per]).to(
+                device=self.device, dtype=torch.float32)
+
+        self.data, self.mask = block(data), block(mask)
+
+    @property
+    def population_clients(self) -> int:
+        return self.num_clients
+
+    @property
+    def dim(self) -> int:
+        return self.data.shape[-1]
+
+    def block_seeds(self, seed: int):
+        """The seeds the block's clients draw from as members of a batch of
+        every client seeded with ``seed`` (``derive_seed(seed, c)``)."""
+        from repro_torch.core.kmeans import MemberSeeds
+        return MemberSeeds(derive_seed(seed, int(c)) for c in self.ids)
+
+    def all_reduce(self, tree):
+        """The sum over the ranks of a payload (a tensor, tuple, NamedTuple
+        or dict of tensors): one ``all_reduce`` a kind of leaf, the float
+        leaves of one dtype flattened into one buffer, int32 leaves widened
+        to int64 and wrapped back modulo 2^32 (no reliance on how a backend
+        overflows)."""
+        leaves = _tree_leaves(tree)
+        groups: dict = {}
+        for pos, leaf in enumerate(leaves):
+            key = (leaf.dtype if leaf.dtype.is_floating_point
+                   else torch.int64)
+            groups.setdefault(key, []).append(pos)
+        out = list(leaves)
+        for key, members in groups.items():
+            buf = torch.cat([leaves[p].reshape(-1).to(key)
+                             for p in members])
+            dist.all_reduce(buf, group=self.group)
+            ShardedClients.collectives += 1
+            at = 0
+            for p in members:
+                leaf = leaves[p]
+                v = buf[at:at + leaf.numel()].view(leaf.shape)
+                at += leaf.numel()
+                out[p] = (wrap_int32(v) if leaf.dtype == torch.int32
+                          else v.to(leaf.dtype))
+        it = iter(out)
+        return _tree_map(lambda _: next(it), tree)
+
+    def all_gather(self, tensors):
+        """Each tensor's ``(C, ...)`` stack over the ranks from the rank's
+        ``(C / world, ...)`` block: one ``all_gather`` of one buffer packed
+        from all of them (one dtype)."""
+        m = len(self.ids)
+        if len({t.dtype for t in tensors}) != 1:
+            raise ValueError("all_gather packs tensors of one dtype")
+        cols = [t.reshape(m, -1) for t in tensors]
+        buf = torch.cat(cols, dim=1).contiguous()
+        out = buf.new_empty((self.world * m, buf.shape[1]))
+        _all_gather_into(out, buf, self.group)
+        ShardedClients.collectives += 1
+        parts = torch.split(out, [c.shape[1] for c in cols], dim=1)
+        return tuple(p.reshape((self.num_clients,) + tuple(t.shape[1:]))
+                     for p, t in zip(parts, tensors))
+
+    def reduce_clients(self, local_step, state, cohort=None, weights=None,
+                       transform=None, tparams=None, tkey=None):
+        """``SplitClients.reduce_clients`` over the rank's block
+        (:func:`_reduce_block`), then the sum over the ranks
+        (:meth:`all_reduce`)."""
+        return self.all_reduce(_reduce_block(
+            local_step, state, self.data, self.mask, int(self.ids[0]),
+            self.num_clients, cohort, weights, transform, tparams, tkey))
+
+
+def make_backend(clients, device, mesh=None, axis: str = "data"):
+    """THE client dispatch: with a ``mesh``, ``(data, mask)`` arrays or a
+    padded split become :class:`ShardedClients` over its ``axis`` (on the
+    mesh's device, whatever ``device`` says); a :class:`SplitClients`
+    passes through (moved to ``device``), a padded split (any object with
+    ``data``/``mask``/``sizes`` arrays, such as
+    ``repro_torch.core.partition.ClientSplit``) is copied onto ``device``,
+    and a list of per-client DataSources becomes :class:`SourceClients` on
+    ``device``."""
+    if mesh is not None:
+        if isinstance(clients, ShardedClients):
+            return clients
+        data, mask = ((clients.data, clients.mask)
+                      if hasattr(clients, "data") else clients)
+        return ShardedClients(data, mask, mesh, axis)
     if isinstance(clients, SourceClients):
         return SourceClients(clients.sources, device, clients.executor)
     if is_source_list(clients):
@@ -325,8 +494,9 @@ def _transform_ledger(payload, transform):
 
 
 def run_rounds(strategy, clients, *, seed: int = 0, device="cuda",
-               state0=None, max_rounds: int = 1, sampler=None,
-               stragglers=None, transform=None, executor=None):
+               state0=None, max_rounds: int = 1, mesh=None,
+               axis: str = "data", sampler=None, stragglers=None,
+               transform=None, executor=None):
     """Run a federation strategy to convergence: THE round loop.
 
     One-shot strategies run one round. Iterative ones run a bootstrap
@@ -344,8 +514,13 @@ def run_rounds(strategy, clients, *, seed: int = 0, device="cuda",
     ``epsilon_spent``. An additive-only transform (pairwise masks) is
     refused for a one-shot strategy, whose server reads each client's
     payload. ``executor`` (a ``ClientExecutor``) runs source clients'
-    steps on worker threads; resident clients ignore it."""
-    backend = make_backend(clients, device)
+    steps on worker threads; resident clients ignore it.
+
+    With a ``mesh`` (a ``DeviceMesh``), ``clients`` are ``(data, mask)``
+    arrays or a padded split, sharded over the mesh's ``axis``
+    (:class:`ShardedClients`): every rank calls ``run_rounds`` with the same
+    arguments, runs its own block, and gets the same result."""
+    backend = make_backend(clients, device, mesh, axis)
     if executor is not None and backend.kind == "sources":
         backend.executor = executor
     one_shot = getattr(strategy, "one_shot", False)

@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.core.config import FitConfig, derive_seed, is_source_list
 from repro_torch.core.dem import (DEMStrategy, _broadcast, _resolve_init,
-                                  max_separated_centers)
+                                  fed_kmeans_centers, max_separated_centers)
 from repro_torch.core.em import e_step_stats, m_step
 from repro_torch.core.gmm import GMM
 from repro_torch.data.sources import DataSource
@@ -226,10 +226,8 @@ class FedKMeansStrategy:
                                        assign_backend=self.assign_backend,
                                        device=backend.device)
         else:
-            centers = federated_kmeans(seed, backend.data, self.k,
-                                       client_weights=backend.mask,
-                                       chunk_size=self.chunk,
-                                       assign_backend=self.assign_backend)
+            centers = fed_kmeans_centers(seed, backend, self.k, self.chunk,
+                                         self.assign_backend)
         inf = torch.tensor(float("inf"), dtype=centers.dtype,
                            device=centers.device)
         return FedKMeansState(centers, inf, inf, float(self.tol))

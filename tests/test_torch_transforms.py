@@ -9,8 +9,9 @@ key path): the DP releases are held to JAX's within rtol 1e-6 and atol 1e-6,
 quantization grids, the int32 lattice (saturation edges included), the pair
 masks and the masked channel exactly. The bit-identity anchors (Identity
 and PairwiseMask leave a fit's bits alone) hold the port to itself with
-``torch.equal``, on the split and the source backends. The mesh backend is
-not ported, so the reference's sharded subprocess case has no counterpart.
+``torch.equal``, on the split and the source backends. The reference's
+sharded subprocess case has its counterpart at 4 gloo ranks in
+``tests/test_torch_distributed.py::test_transform_seam_at_four_ranks``.
 """
 import dataclasses
 import math
