@@ -118,7 +118,23 @@ Phases (each failure makes the exit code non-zero):
      below the plain fit by more than 1e-5, both walls, and the
      split-merge locals aggregated and scored. The sharded walls are
      printed beside the single-process ones and the card's name and power
-     limit.
+     limit;
+ 12. the transformer substrate's serving path at internlm2-1.8b's full
+     width (24 layers, d_model 2048, GQA 16/8, vocab 92,544; weights from
+     seed 0, bf16 matrices, an f32 copy from the same draw): (a) the build
+     and its 1,889,110,016 parameters; (b) decode against prefill in f32
+     (TF32 off, bound 1e-3) and bf16 (reported), ring-buffer decode
+     against windowed full-cache decode in f32; (c)
+     ``repro_torch.launch.serve.ServeEngine`` on the JAX serve CLI's stream
+     with the FedGenGMM activation monitor attached (one ``observe`` a
+     batch) and on a heavier stream, every request served with its
+     budget, a request with same-length peers against its solo run in f32,
+     TTFT, latency, decode ms a step, tokens/s, peak memory and one
+     profiled batch's idle share; (d) the monitor at full width: four
+     clients' local fits, one FedGenGMM round, 64 ID against 64 OOD
+     sequences scored, through ``kmeans_sweep_stats``, ``estep_stats`` and
+     ``gmm_log_prob`` (phase 2 holds them at these shapes), the scores
+     against the plain version.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``. A kernel's ``launches`` there is phase
@@ -126,7 +142,8 @@ The last two lines are the ``{"kernels": [...]}`` summary and
 wrapper's launches: a warm-up and a capture at each install, since a replay
 does not call it), phase 9 (a)'s out-of-core run with its scoring over
 sources, phase 10's runs (``uplink_async``) and phase 11's
-(``mesh_continual_splitmerge``), and ``serving_device_launches`` the
+(``mesh_continual_splitmerge``) and phase 12's (``transformer_serving``),
+and ``serving_device_launches`` the
 kernel's launches that the profiler saw on the device in phase 8's traced
 runs (one a micro-batch). Without CUDA, or without the repository beside it, the
 script exits non-zero and prints no result.
@@ -532,14 +549,24 @@ def phase_kernels(dev, report):
         errs["estep_stats"] = max(errs["estep_stats"],
                                   estep_case(1, n, D, K, 700 + i, valid=n))
         sweeps += [(4, n), (1, n)]
+    # phase 12's monitor: a local fit's and the server refit's E-step and
+    # sweeps at d = 32, and a scoring call of MON_SCORED sequences
+    errs["estep_stats"] = max(errs["estep_stats"], *(
+        estep_case(1, n, d, k, 800 + i)
+        for i, (n, d, k) in enumerate(MON_ESTEP_SHAPES)))
+    sweeps_d = [(bsz, n, d, k, 810 + i)
+                for i, (bsz, n, d, k) in enumerate(MON_SWEEP_SHAPES)]
+    errs["gmm_log_prob"] = max(errs["gmm_log_prob"], logpdf_case(
+        MON_SCORED, MON_DIM, MON_K_GLOBAL, 820)[1])
     errs["kmeans_assign"] = max(assign_case(CLIENTS, N_PAD, D, K, 4)[0],
                                 assign_case(1, N_SYNTH, D, K, 5)[0],
                                 # phase 9's label pass: one 2-D block
                                 assign_case(None, BIG_CHUNK, D, K, 8)[0])
     errs["kmeans_sweep_stats"] = max(
-        sweep_case(bsz, n, D, K, 20 + i)
-        for i, (bsz, n) in enumerate(SWEEP_SHAPES + OOC_SWEEP_SHAPES
-                                     + sweeps))
+        [sweep_case(bsz, n, D, K, 20 + i)
+         for i, (bsz, n) in enumerate(SWEEP_SHAPES + OOC_SWEEP_SHAPES
+                                      + sweeps)]
+        + [sweep_case(*shape) for shape in sweeps_d])
     # ties: every center duplicated, so each row has two nearest centers
     rng = np.random.default_rng(6)
     base = torch.as_tensor(rng.normal(0, 2, (1, 8, D)), dtype=torch.float32,
@@ -560,6 +587,10 @@ def phase_kernels(dev, report):
         + f" and the {CONTINUAL_SYNTH:,}-row refit; (f)'s {CLIENTS} unmasked "
         f"clients of {min(client_rows)}..{max(client_rows)} rows; "
         f"gmm_log_prob at (e)'s {N_TRAIN // CONTINUAL_WINDOWS:,} rows")
+    log(f"phase 2: estep_stats, kmeans_sweep_stats and gmm_log_prob held "
+        f"at phase 12's monitor shapes: E-steps (rows, d, K) "
+        f"{MON_ESTEP_SHAPES}, sweeps (batch, rows, d, K) {MON_SWEEP_SHAPES}, "
+        f"scoring ({MON_SCORED}, {MON_DIM}, {MON_K_GLOBAL})")
     log(f"phase 2: kernels match their plain versions; main-path max abs "
         f"err {errs}; gmm_log_prob, estep_stats and kmeans_sweep_stats "
         f"bit-reproducible; gmm_log_prob rows the same bits alone, in "
@@ -1447,23 +1478,41 @@ def check_steps(steps, what):
     return len(steady), installs
 
 
+# The kernel of ``torch.cuda._sleep``: the marker that closes a profiled
+# window. It tells a trace cut short at its end apart from a kernel that
+# never launched (ROADMAP Queue C, R7)
+PROFILER_MARKER = "spin_kernel"
+
+
 def profiled(fn):
     """Run ``fn`` under ``torch.profiler`` -> (its result, {device event
-    name: (count, us)}). A profiler that fails or sees no device event
-    fails the phase: the serving path's device launches are read here."""
+    name: (count, us)}), the marker left out. The window opens on a drained
+    device; after ``fn`` the device is drained, a marker kernel
+    (``torch.cuda._sleep``) runs and is drained in turn, and only then does
+    the window close. A profiler that fails, sees no device event or lost
+    the marker fails the phase: the serving path's device launches are
+    read here, and a lost marker says the trace, not the path, fell
+    short."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
     by_name: dict = {}
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            cnt, us = by_name.get(ev.name, (0, 0.0))
-            by_name[ev.name] = (cnt + 1, us + ev.time_range.elapsed_us())
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        cnt, us = by_name.get(ev.name, (0, 0.0))
+        by_name[ev.name] = (cnt + 1, us + ev.time_range.elapsed_us())
     check(by_name, "the profiler saw no device events")
-    return out, by_name
+    check(any(PROFILER_MARKER in name for name in by_name),
+          "the profiler's trace lost the marker that closes its window")
+    return out, {name: v for name, v in by_name.items()
+                 if PROFILER_MARKER not in name}
 
 
 def device_launches(by_name) -> int:
@@ -3031,6 +3080,389 @@ def phase_mesh_extensions(dev, report):
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# ----------------------------------------------------------------------
+# Phase 12: the transformer substrate's serving path at full width
+# ----------------------------------------------------------------------
+
+LM_ARCH = "internlm2-1.8b"
+LM_PARAMS = 1_889_110_016
+# f32 logits (TF32 off) of one computation done two ways: decode against
+# prefill, ring against windowed full cache, batched against solo
+LM_RTOL = LM_ATOL = 1e-3
+CONSIST_B, CONSIST_PROMPT, CONSIST_STEPS = 4, 64, 16
+RING_C, RING_STEPS = 32, 48
+# name: (requests, prompt lengths lo..hi, max_new, max_batch, max_context).
+# "cli" is the JAX package's serve CLI stream (repro/launch/serve.py:95-120)
+LM_STREAMS = {"cli": (12, (8, 32), 8, 4, 256),
+              "heavy": (32, (128, 512), 32, 8, 1024)}
+# the monitor: MonitorConfig() (feature_dim 32, k_local 4, k_global 8,
+# h 100); 4 clients observe 8 batches of 16 x 256 tokens each, then 64
+# in-distribution and 64 OOD sequences are scored
+MON_CLIENTS, MON_BATCHES, MON_ROWS, MON_LEN, MON_SCORED = 4, 8, 16, 256, 64
+MON_DIM, MON_K_LOCAL, MON_K_GLOBAL, MON_H = 32, 4, 8, 100
+# the monitor's kernel shapes (held in phase 2): (rows, d, K) of a local
+# fit's E-step and of the server refit's, (batch, rows, d, K) of their
+# pilot and Lloyd sweeps, rows of a scoring call
+MON_FIT_ROWS = MON_BATCHES * MON_ROWS
+MON_REFIT_ROWS = MON_H * MON_CLIENTS * MON_K_LOCAL
+MON_ESTEP_SHAPES = [(MON_FIT_ROWS, MON_DIM, MON_K_LOCAL),
+                    (MON_REFIT_ROWS, MON_DIM, MON_K_GLOBAL)]
+MON_SWEEP_SHAPES = [(4, MON_FIT_ROWS, MON_DIM, MON_K_LOCAL),
+                    (1, MON_FIT_ROWS, MON_DIM, MON_K_LOCAL),
+                    (4, MON_REFIT_ROWS, MON_DIM, MON_K_GLOBAL),
+                    (1, MON_REFIT_ROWS, MON_DIM, MON_K_GLOBAL)]
+
+
+def lm_gib(nbytes) -> str:
+    return f"{nbytes / 2**30:.3f} GiB"
+
+
+def lm_consistency(dev, model, cfg, rng, what):
+    """Decode against prefill: a CONSIST_PROMPT-token prompt at B =
+    CONSIST_B, then CONSIST_STEPS decode steps fed fixed tokens; step i's
+    logits against ``prefill_forward``'s last-position logits on the
+    prompt extended by the same i + 1 tokens -> (max abs diff, greedy
+    agreement)."""
+    import torch
+    from repro_torch.models import decode_step, prefill_forward
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (
+        CONSIST_B, CONSIST_PROMPT)), device=dev)
+    forced = torch.as_tensor(rng.integers(0, cfg.vocab_size, (
+        CONSIST_B, CONSIST_STEPS)), device=dev)
+    _, cache = prefill_forward(model, cfg, {"tokens": prompt},
+                               capacity=CONSIST_PROMPT + CONSIST_STEPS)
+    err, agree = 0.0, []
+    for i in range(CONSIST_STEPS):
+        got, cache = decode_step(model, cfg, cache, forced[:, i],
+                                 CONSIST_PROMPT + i)
+        want, _ = prefill_forward(
+            model, cfg, {"tokens": torch.cat([prompt, forced[:, :i + 1]],
+                                             dim=1)},
+            capacity=CONSIST_PROMPT + i + 1)
+        check(bool(torch.isfinite(got).all()), f"{what}: non-finite logits")
+        err = max(err, float((got - want).abs().max()))
+        agree.append(torch.argmax(got, -1) == torch.argmax(want, -1))
+    return err, float(torch.stack(agree).float().mean())
+
+
+def lm_ring(dev, model, cfg, rng):
+    """Ring-buffer decode at C = RING_C against full-cache decode with a
+    RING_C window, RING_STEPS steps after a CONSIST_PROMPT-token prompt,
+    both through ``swa`` layers of window RING_C -> max abs diff."""
+    import dataclasses
+    import torch
+    from repro_torch.models import decode_step, prefill_forward
+    swa = dataclasses.replace(cfg, pattern=("swa",), window=RING_C)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (
+        CONSIST_B, CONSIST_PROMPT)), device=dev)
+    _, ring = prefill_forward(model, swa, {"tokens": prompt},
+                              capacity=RING_C, ring=True)
+    _, full = prefill_forward(model, swa, {"tokens": prompt},
+                              capacity=CONSIST_PROMPT + RING_STEPS)
+    check(ring[0]["k"].shape[1] == RING_C, "the ring cache is not C wide")
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (CONSIST_B,)),
+                          device=dev)
+    err = 0.0
+    for i in range(RING_STEPS):
+        a, ring = decode_step(model, swa, ring, tok, CONSIST_PROMPT + i,
+                              ring=True)
+        b, full = decode_step(model, swa, full, tok, CONSIST_PROMPT + i)
+        err = max(err, close(a, b, LM_RTOL, LM_ATOL,
+                             f"ring decode step {i} against the windowed "
+                             f"full cache"))
+        tok = torch.argmax(b, -1)
+    return err
+
+
+def lm_stream(name, cfg, seed=0):
+    """LM_STREAMS[name] as serve requests: prompt lengths uniform in
+    lo..hi and tokens uniform below ``min(vocab, 100)`` ("cli", as the JAX
+    CLI draws them) or over the vocabulary, from default_rng(seed)."""
+    import numpy as np
+    from repro_torch.launch.serve import Request
+    n, (lo, hi), max_new, _, _ = LM_STREAMS[name]
+    rng = np.random.default_rng(seed)
+    top = min(cfg.vocab_size, 100) if name == "cli" else cfg.vocab_size
+    return [Request(i, rng.integers(0, top, rng.integers(lo, hi + 1))
+                    .astype(np.int32), max_new) for i in range(n)]
+
+
+def forced_logits(eng, reqs, row, forced):
+    """Logits of ``reqs[row]`` at every step through ``eng``'s own
+    padding, prefill and decode step, the row fed ``forced`` (the others
+    their greedy tokens) -> (len(forced), V)."""
+    import torch
+    tokens, lmax = eng._pad_batch(reqs)
+    logits, cache = eng._prefill(eng.params, {"tokens": tokens})
+    out = [logits[row].clone()]
+    for i in range(len(forced) - 1):
+        tok = torch.argmax(logits, -1)
+        tok[row] = forced[i]
+        logits, cache = eng._step(eng.params, cache, tok, lmax + i)
+        out.append(logits[row].clone())
+    return torch.stack(out)
+
+
+def batch_vs_solo(dev, cfg32, model32, name, stream):
+    """A request of ``stream`` served with same-length peers against its
+    solo run, in f32 through an f32 engine of the stream's geometry: the
+    solo greedy tokens are fed to both, logits held step by step ->
+    (max abs diff, batch size)."""
+    import numpy as np
+    from repro_torch.launch.serve import Request, ServeEngine
+    _, _, max_new, max_batch, max_context = LM_STREAMS[name]
+    eng = ServeEngine(cfg32, model32, max_batch=max_batch,
+                      max_context=max_context, device=dev.type)
+    target = stream[0]
+    solo = eng.serve([target])[0].tokens
+    rng = np.random.default_rng(1)
+    top = int(target.prompt.max()) + 1
+    peers = [Request(100 + i, rng.integers(0, top, len(target.prompt))
+                     .astype(np.int32), max_new)
+             for i in range(max_batch - 1)]
+    row = max_batch // 2
+    batch = peers[:row] + [target] + peers[row:]
+    err = close(forced_logits(eng, batch, row, solo),
+                forced_logits(eng, [target], 0, solo), LM_RTOL, LM_ATOL,
+                f"{name}: request {target.rid} with {max_batch - 1} "
+                f"same-length peers against its solo run")
+    return err, len(batch)
+
+
+def serve_lm_stream(dev, cfg, model, name, monitor=None):
+    """Serve LM_STREAMS[name] through a bf16 ``ServeEngine`` -> (results,
+    stats line). Every request served with its budget; TTFT, latency,
+    decode ms a step, tokens/s and peak memory measured."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import ServeEngine
+    n, _, max_new, max_batch, max_context = LM_STREAMS[name]
+    stream = lm_stream(name, cfg)
+    eng = ServeEngine(cfg, model, max_batch=max_batch,
+                      max_context=max_context, monitor=monitor,
+                      device=dev.type)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = eng.serve(stream)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(sorted(r.rid for r in results) == list(range(n)),
+          f"{name}: not every request was served")
+    check(all(len(r.tokens) == max_new for r in results),
+          f"{name}: a request's token budget was not kept")
+    check(all(0 <= t < cfg.vocab_size for r in results for t in r.tokens),
+          f"{name}: a token outside the vocabulary")
+    ttft = np.array([r.ttft_s for r in results]) * 1e3
+    lat = np.array([r.latency_s for r in results]) * 1e3
+    # one decode step: a batch's wall after its first token over its steps
+    per_batch = {(r.ttft_s, r.latency_s) for r in results}
+    step_ms = [(b - a) / (max_new - 1) * 1e3 for a, b in per_batch]
+    tokens = sum(len(r.tokens) for r in results)
+    lens = [len(r.prompt) for r in stream]
+    stats = (f"{n} requests, prompts {min(lens)}..{max(lens)} tokens, "
+             f"max_new {max_new}, max_batch {max_batch}, max_context "
+             f"{max_context}: TTFT p50 {np.percentile(ttft, 50):.2f} ms, p99 "
+             f"{np.percentile(ttft, 99):.2f} ms; latency p50 "
+             f"{np.percentile(lat, 50):.2f} ms, p99 "
+             f"{np.percentile(lat, 99):.2f} ms; decode "
+             f"{np.mean(step_ms):.3f} ms a step ({min(step_ms):.3f}.."
+             f"{max(step_ms):.3f} over {len(step_ms)} batches); {tokens} "
+             f"tokens in {wall:.3f} s, {tokens / wall:.1f} tokens/s; peak "
+             f"memory {lm_gib(peak)}, {lm_gib(peak - before)} above the "
+             f"{lm_gib(before)} allocated before the stream")
+    bare = ServeEngine(cfg, model, max_batch=max_batch,
+                       max_context=max_context, device=dev.type)
+    busy, pwall, by_name = profiled_busy(
+        lambda: bare.serve(stream[:max_batch]))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    stats += (f"; one batch under the profiler: device busy {busy:.2f} ms "
+              f"of {pwall:.2f} ms wall, idle share {1 - busy / pwall:.4f}; "
+              f"largest device items (ms) " + ", ".join(
+                  f"{ms:.2f} {name.replace('void at::native::', '')[:90]}"
+                  for name, ms in top))
+    return stream, stats
+
+
+def lm_monitor(dev, cfg, model):
+    """The FedGenGMM monitor at full width: MON_CLIENTS clients observe
+    MON_BATCHES batches of MON_ROWS x MON_LEN in-distribution tokens
+    (``synthetic_stream`` at the model's vocabulary, one seed a client),
+    one aggregation, then MON_SCORED in-distribution sequences (another
+    seed) and MON_SCORED OOD ones (uniform over the vocabulary's upper
+    half) scored -> (ID scores, OOD scores, the features scored, walls)."""
+    import numpy as np
+    import torch
+    from repro_torch.data.tokens import synthetic_stream
+    from repro_torch.monitor import (FedGMMMonitor, MonitorConfig,
+                                     extract_features)
+    mcfg = MonitorConfig()
+    check((mcfg.feature_dim, mcfg.k_local, mcfg.k_global, mcfg.h)
+          == (MON_DIM, MON_K_LOCAL, MON_K_GLOBAL, MON_H),
+          f"MonitorConfig() is {mcfg}, not phase 12's")
+    mon = FedGMMMonitor(cfg, mcfg, device=dev.type)
+    per_client = MON_BATCHES * MON_ROWS * MON_LEN
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for cid in range(MON_CLIENTS):
+        toks = synthetic_stream(cid, cfg.vocab_size, per_client).reshape(
+            MON_BATCHES, MON_ROWS, MON_LEN)
+        for b in range(MON_BATCHES):
+            mon.observe(cid, model, {"tokens": toks[b]})
+    torch.cuda.synchronize()
+    t_feat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g = mon.aggregate()
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    check(g.n_components == MON_K_GLOBAL
+          and all(bool(torch.isfinite(t).all())
+                  for t in (g.weights, g.means, g.covs)),
+          "the global monitor GMM is not a finite K_global mixture")
+    id_toks = synthetic_stream(MON_CLIENTS, cfg.vocab_size,
+                               MON_SCORED * MON_LEN).reshape(MON_SCORED,
+                                                             MON_LEN)
+    ood_toks = np.random.default_rng(7).integers(
+        cfg.vocab_size // 2, cfg.vocab_size, (MON_SCORED, MON_LEN)
+    ).astype(np.int32)
+    t0 = time.perf_counter()
+    id_s = mon.score(model, {"tokens": id_toks})
+    ood_s = mon.score(model, {"tokens": ood_toks})
+    t_score = time.perf_counter() - t0
+    feats = torch.cat([extract_features(model, cfg, {"tokens": t}, mon.proj)
+                       for t in (id_toks, ood_toks)])
+    return mon, id_s, ood_s, feats, (t_feat, t_fit, t_score)
+
+
+def phase_transformer_serving(dev, report):
+    """Phase 12: internlm2-1.8b at full width from seed 0 (bf16 matrices;
+    an f32 copy from the same seed for the f32 bounds, built after the
+    bf16 streams are served so that their peak memory is the server's):
+    (a) the build; (c) ``ServeEngine`` on the JAX CLI's stream with the
+    FedGenGMM monitor attached (one ``observe`` a batch) and on a heavier
+    stream; (b) decode against prefill in f32 and bf16, ring against
+    windowed full-cache decode in f32; (c) a request of each stream
+    against its solo run in f32; (d) the monitor at full width: four
+    clients' local fits, one FedGenGMM round and OOD against ID scores,
+    through the kernels."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import pack_params
+    from repro_torch.models import count_params, init_params
+    from repro_torch.monitor import FedGMMMonitor, MonitorConfig
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    cfg = get_config(LM_ARCH, "full")
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    # (a) the build
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = init_params(0, cfg, device=dev.type)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    mem_bf16 = torch.cuda.memory_allocated() - base
+    n_params = count_params(model)
+    check(n_params == LM_PARAMS, f"{LM_ARCH}: {n_params:,} parameters, not "
+          f"{LM_PARAMS:,}")
+    check(model.embed.dtype == torch.bfloat16
+          and model.layers[0].attn.wq.dtype == torch.bfloat16
+          and model.layers[0].ln1.dtype == torch.float32,
+          "the bf16 model's matrices are not bf16 or its norms not f32")
+    log(f"phase 12 (a): {LM_ARCH} full ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads, kv {cfg.n_kv_heads}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}) from seed 0: {n_params:,} "
+        f"parameters; bf16 matrices {lm_gib(mem_bf16)} allocated, built in "
+        f"{t_build:.3f} s; {card_line()}")
+
+    # (c) ServeEngine, two streams, bf16, served while only the bf16 model
+    # is on the card; the monitor on the CLI's
+    mon = FedGMMMonitor(cfg, MonitorConfig(), device=dev.type)
+    observed = []
+    observe = mon.observe
+    mon.observe = lambda cid, p, b: (observed.append(cid), observe(cid, p, b))
+    streams = {}
+    for name in LM_STREAMS:
+        streams[name], stats = serve_lm_stream(
+            dev, cfg, model, name, monitor=mon if name == "cli" else None)
+        log(f"phase 12 (c): {name}: {stats}; {card_line()}")
+    n_cli, _, _, cli_batch, _ = LM_STREAMS["cli"]
+    check(observed == [0] * -(-n_cli // cli_batch),
+          f"the monitor observed {observed}, not once a batch as client 0")
+    log(f"phase 12 (c): the monitor attached to the cli stream's engine "
+        f"observed {len(observed)} batches, once a batch")
+
+    # the f32 copy, for (b) and the batch-against-solo checks of (c)
+    t0 = time.perf_counter()
+    model32 = init_params(0, cfg32, device=dev.type)
+    torch.cuda.synchronize()
+    t_build32 = time.perf_counter() - t0
+    check(torch.equal(model32.layers[-1].ffn.w_up.to(torch.bfloat16),
+                      model.layers[-1].ffn.w_up),
+          "the f32 and bf16 models are not the same draw")
+    log(f"phase 12 (a): the f32 copy built in {t_build32:.3f} s; "
+        f"{lm_gib(torch.cuda.memory_allocated())} allocated with both")
+
+    # (b) consistency
+    rng = np.random.default_rng(12)
+    err32, agree32 = lm_consistency(dev, model32, cfg32, rng, "f32")
+    check(err32 <= LM_ATOL, f"f32 decode against prefill: max abs diff "
+          f"{err32} beyond {LM_ATOL}")
+    err16, agree16 = lm_consistency(dev, model, cfg, rng, "bf16")
+    ring_err = lm_ring(dev, model32, cfg32, rng)
+    log(f"phase 12 (b): decode against prefill, B = {CONSIST_B}, a "
+        f"{CONSIST_PROMPT}-token prompt, {CONSIST_STEPS} steps fed fixed "
+        f"tokens: f32 (TF32 off) max abs diff {err32:.3e} (bound "
+        f"{LM_ATOL}), greedy agreement {agree32:.4f}; bf16 max abs diff "
+        f"{err16:.3e}, greedy agreement {agree16:.4f}; ring decode at C = "
+        f"{RING_C} against windowed full-cache decode (window {RING_C}), "
+        f"{RING_STEPS} steps in f32: max abs diff {ring_err:.3e}")
+
+    # (c) a request with same-length peers against its solo run, in f32
+    for name, stream in streams.items():
+        err, b = batch_vs_solo(dev, cfg32, model32, name, stream)
+        log(f"phase 12 (c): {name}: request 0 with {b - 1} same-length "
+            f"peers against its solo run, f32, its solo tokens "
+            f"fed to both: logits max abs diff {err:.3e} (bound {LM_ATOL})")
+    del model32
+    torch.cuda.empty_cache()
+
+    # (d) the monitor at full width
+    mon, id_s, ood_s, feats, walls = lm_monitor(dev, cfg, model)
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    for name in PATH_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched on the "
+              f"transformer serving path")
+    g = mon.global_gmm
+    plain = -ref.gmm_log_prob_packed(feats, *pack_params(
+        g.means, g.covs, torch.log(g.weights)))
+    err = close(torch.as_tensor(np.concatenate([id_s, ood_s])), plain.cpu(),
+                2e-4, 2e-4, "monitor scores against the plain version")
+    med_id, med_ood = float(np.median(id_s)), float(np.median(ood_s))
+    log(f"phase 12 (d): monitor {MonitorConfig()}: {MON_CLIENTS} clients x "
+        f"{MON_BATCHES} batches of {MON_ROWS} x {MON_LEN} tokens; feature "
+        f"extraction {walls[0]:.3f} s, local fits + aggregate {walls[1]:.3f} "
+        f"s, scoring {2 * MON_SCORED} sequences {walls[2]:.3f} s; median "
+        f"anomaly score ID {med_id:.4f}, OOD {med_ood:.4f}; scores against "
+        f"the plain version max abs err {err:.3e} (rtol/atol 2e-4); "
+        f"launches {launches}")
+    check(med_ood > med_id, f"the monitor scores OOD traffic (median "
+          f"{med_ood}) no higher than ID traffic (median {med_id})")
+    for entry in report["kernels"]:
+        entry["launches_by_path"]["transformer_serving"] = \
+            launches[entry["name"]]
+    del model, mon
+    torch.cuda.empty_cache()
+    log(f"phase 12: took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: the repository (src/repro_torch) is not beside "
@@ -3076,7 +3508,8 @@ def main() -> int:
               ("out of core", phase_out_of_core),
               ("uplink transforms and async rounds", phase_uplink_async),
               ("mesh runtime, continual and split-merge",
-               phase_mesh_extensions)]
+               phase_mesh_extensions),
+              ("transformer serving", phase_transformer_serving)]
     for name, fn in phases:
         if failures:
             log(f"skipping phase {name!r} after a failure")

@@ -1,0 +1,54 @@
+"""Architecture registry + the assigned input shapes (port of
+``repro/configs/base.py``).
+
+Every registered architecture has a full-size ``ModelConfig`` (the paper's
+dimensions) and a ``smoke`` reduced variant used by the CPU tests. The port
+registers the five dense-attention decoders; the MoE, recurrent, xLSTM and
+encoder-decoder architectures register with their families (ROADMAP Queue
+A), and the dry-run's ``input_specs``/``decode_capacity``/``uses_ring``
+with the dry-run.
+
+Input shapes (assigned):
+    train_4k      seq_len=4096    global_batch=256   (train_step)
+    prefill_32k   seq_len=32768   global_batch=32    (prefill_step)
+    decode_32k    seq_len=32768   global_batch=128   (serve_step, full cache)
+    long_500k     seq_len=524288  global_batch=1     (serve_step, ring cache)
+"""
+from __future__ import annotations
+
+from repro_torch.models.transformer import ModelConfig
+
+INPUT_SHAPES = {
+    "train_4k": {"seq_len": 4096, "global_batch": 256, "kind": "train"},
+    "prefill_32k": {"seq_len": 32768, "global_batch": 32, "kind": "prefill"},
+    "decode_32k": {"seq_len": 32768, "global_batch": 128, "kind": "decode"},
+    "long_500k": {"seq_len": 524288, "global_batch": 1, "kind": "decode_ring"},
+}
+
+_REGISTRY: dict[str, dict] = {}
+
+
+def register(arch_id: str, full: ModelConfig, smoke: ModelConfig,
+             citation: str):
+    _REGISTRY[arch_id] = {"full": full, "smoke": smoke, "citation": citation}
+
+
+def get_config(arch_id: str, variant: str = "full") -> ModelConfig:
+    _ensure_loaded()
+    return _REGISTRY[arch_id][variant]
+
+
+def get_citation(arch_id: str) -> str:
+    _ensure_loaded()
+    return _REGISTRY[arch_id]["citation"]
+
+
+def list_archs() -> list[str]:
+    _ensure_loaded()
+    return sorted(_REGISTRY)
+
+
+def _ensure_loaded():
+    if not _REGISTRY:
+        from repro_torch.configs import (deepseek_67b, gemma_7b,  # noqa: F401
+                                         internlm2_1_8b, internvl2_26b, yi_6b)

@@ -1,0 +1,9 @@
+"""Model substrate of the port: the dense-attention transformer stack."""
+from repro_torch.models.common import count_params
+from repro_torch.models.transformer import (ModelConfig, Transformer,
+                                            decode_step, init_cache,
+                                            init_params, prefill_forward,
+                                            train_forward)
+
+__all__ = ["ModelConfig", "Transformer", "count_params", "decode_step",
+           "init_cache", "init_params", "prefill_forward", "train_forward"]

@@ -1,0 +1,90 @@
+"""The port's architecture registry (``repro_torch.configs``) and its copy of
+``repro/data/tokens.py`` against the JAX package's: the five
+dense-attention configs field for field, parameter counts, and the token
+streams array for array."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import INPUT_SHAPES as JAX_INPUT_SHAPES
+from repro.configs import get_citation as jax_citation
+from repro.configs import get_config as jax_config
+from repro.data import tokens as jax_tokens
+from repro.models import count_params as jax_count_params
+from repro.models import init_params as jax_init_params
+from repro_torch.configs import (INPUT_SHAPES, get_citation, get_config,
+                                 list_archs)
+from repro_torch.data import tokens
+from repro_torch.models import count_params, init_params, transformer
+
+PORTED = ["deepseek-67b", "gemma-7b", "internlm2-1.8b", "internvl2-26b",
+          "yi-6b"]
+DTYPES = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
+
+
+def test_list_archs_is_the_dense_attention_five():
+    assert list_archs() == PORTED
+
+
+@pytest.mark.parametrize("variant", ["full", "smoke"])
+@pytest.mark.parametrize("arch", PORTED)
+def test_config_equals_jax_field_for_field(arch, variant):
+    jc, tc = jax_config(arch, variant), get_config(arch, variant)
+    jf = [f.name for f in dataclasses.fields(jc)]
+    assert [f.name for f in dataclasses.fields(tc)] == jf
+    for name in jf:
+        if name == "dtype":
+            assert DTYPES[getattr(jc, name)] == tc.dtype
+        else:
+            assert getattr(tc, name) == getattr(jc, name), name
+    assert tc.layer_types() == jc.layer_types()
+    assert (tc.hd, tc.n_groups, tc.n_tail) == (jc.hd, jc.n_groups, jc.n_tail)
+    assert get_citation(arch) == jax_citation(arch)
+
+
+def test_input_shapes():
+    assert INPUT_SHAPES == JAX_INPUT_SHAPES
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_count_params_smoke(arch):
+    cfg = get_config(arch, "smoke")
+    want = jax_count_params(jax_init_params(jax.random.key(0),
+                                            jax_config(arch, "smoke")))
+    assert count_params(init_params(0, cfg, device="cpu")) == want
+
+
+def test_count_params_internlm2_full():
+    """1,889,110,016 parameters at full width: the reference's count from
+    ``jax.eval_shape``, the port's from one full-width layer drawn on the
+    CPU times the depth, plus the embedding, head and final norm."""
+    jc = jax_config("internlm2-1.8b", "full")
+    shapes = jax.eval_shape(lambda: jax_init_params(jax.random.key(0), jc))
+    want = sum(int(np.prod(s.shape)) for s in jax.tree.leaves(shapes))
+    assert want == 1_889_110_016
+    cfg = get_config("internlm2-1.8b", "full")
+    layer = transformer._layer_init(torch.Generator(), cfg)
+    total = count_params(layer) * cfg.n_layers \
+        + 2 * cfg.vocab_size * cfg.d_model + cfg.d_model
+    assert total == want
+
+
+@pytest.mark.parametrize("seed,vocab,length", [(0, 512, 4096),
+                                               (3, 92544, 10000)])
+def test_synthetic_stream(seed, vocab, length):
+    np.testing.assert_array_equal(
+        tokens.synthetic_stream(seed, vocab, length),
+        jax_tokens.synthetic_stream(seed, vocab, length))
+
+
+def test_batches():
+    got = list(tokens.batches(1, 512, 4, 16, 3))
+    want = list(jax_tokens.batches(1, 512, 4, 16, 3))
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a, b)

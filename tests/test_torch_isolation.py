@@ -115,3 +115,50 @@ def test_auto_backend_raises_on_a_card_other_than_hopper(monkeypatch):
     monkeypatch.setattr(torch.cuda, "get_device_capability",
                         lambda device=None: (9, 0))
     assert resolve_backend("auto", cuda) == "fused"
+
+
+SUBSTRATE = ("repro_torch.models", "repro_torch.configs",
+             "repro_torch.monitor", "repro_torch.launch",
+             "repro_torch.data.tokens")
+
+
+def test_substrate_imports_with_jax_blocked():
+    """The transformer substrate's sub-packages are walked by
+    test_imports_with_jax_blocked; here each imports alone in a process
+    where ``jax`` and ``repro`` cannot be imported."""
+    names = [m.name for m in pkgutil.walk_packages([str(PKG)], "repro_torch.")]
+    for pkg in SUBSTRATE:
+        assert pkg in names
+    code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None"
+            "\nimport importlib\n"
+            f"for m in {SUBSTRATE!r}: importlib.import_module(m)\n"
+            "import repro_torch.launch.serve, "
+            "repro_torch.monitor.activation_monitor\n"
+            "print('ok')")
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_substrate_entry_points_default_to_cuda():
+    """The model, its cache, the serving loop and the monitor run on CUDA
+    unless asked for the CPU, and raise where there is no card."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.monitor import FedGMMMonitor, feature_projection
+    from repro_torch.monitor import MonitorConfig
+    cfg = get_config("internlm2-1.8b", "smoke")
+    model = init_params(0, cfg, device="cpu")
+    if torch.cuda.is_available():
+        assert init_params(0, cfg).device.type == "cuda"
+        assert FedGMMMonitor(cfg).device.type == "cuda"
+        return
+    for call in (lambda: init_params(0, cfg),
+                 lambda: init_cache(cfg, 1, 8),
+                 lambda: ServeEngine(cfg, model),
+                 lambda: FedGMMMonitor(cfg),
+                 lambda: feature_projection(cfg, MonitorConfig())):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
