@@ -134,7 +134,30 @@ Phases (each failure makes the exit code non-zero):
      clients' local fits, one FedGenGMM round, 64 ID against 64 OOD
      sequences scored, through ``kmeans_sweep_stats``, ``estep_stats`` and
      ``gmm_log_prob`` (phase 2 holds them at these shapes), the scores
-     against the plain version.
+     against the plain version;
+ 13. the substrate's training path and its MoE family: (a) internlm2-1.8b
+     trained at full width and depth (f32 masters from seed 0, bf16
+     compute, remat on) for 10 steps of ``batches(0, 92544, 4, 1024, 10)``
+     at lr 3e-4, every step's loss, nll, grad_norm and lr (the port's
+     ``schedule``), the median step wall, tokens/s, model TFLOP/s as
+     6 N tokens / step wall, peak memory and one profiled step's idle
+     share, the loss falling; (b) the smoke configs of internlm2-1.8b,
+     deepseek-moe-16b and mixtral-8x7b in f32 (TF32 off), masters built on
+     the CPU and copied to the card, three ``train_step``s on each device,
+     loss, grad_norm and the parameters after step 1 within 1e-4
+     relative; (c) remat on against off and the chunked loss against the
+     single shot, one step's loss and gradients within 1e-5 (f32, smoke
+     width, S = 1,024); (d) deepseek-moe-16b whole (28 layers, 16.4e9
+     parameters, bf16) behind ``ServeEngine`` on phase 12's two streams,
+     the monitor attached to the cli stream's engine (one ``observe`` a
+     batch), the monitor's fits, round and scoring at its width through
+     the three kernels, and f32 decode against prefill on a 4-layer copy
+     at the drop-free capacity factor; (e) deepseek-moe-16b cut to 2
+     layers (its dense layer and one MoE layer) trained 5 steps, every
+     expert, the router and the shared experts given gradients, and
+     mixtral-8x7b cut to 2 layers in f32: a 4,160-token prompt past its
+     4,096 window, then 8 decode steps through the ring cache against the
+     full cache with the window mask.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``. A kernel's ``launches`` there is phase
@@ -142,11 +165,11 @@ The last two lines are the ``{"kernels": [...]}`` summary and
 wrapper's launches: a warm-up and a capture at each install, since a replay
 does not call it), phase 9 (a)'s out-of-core run with its scoring over
 sources, phase 10's runs (``uplink_async``) and phase 11's
-(``mesh_continual_splitmerge``) and phase 12's (``transformer_serving``),
-and ``serving_device_launches`` the
-kernel's launches that the profiler saw on the device in phase 8's traced
-runs (one a micro-batch). Without CUDA, or without the repository beside it, the
-script exits non-zero and prints no result.
+(``mesh_continual_splitmerge``), phase 12's (``transformer_serving``) and
+phase 13's (``transformer_training_moe``), and ``serving_device_launches``
+the kernel's launches that the profiler saw on the device in phase 8's
+traced runs (one a micro-batch). Without CUDA, or without the repository
+beside it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -3463,6 +3486,440 @@ def phase_transformer_serving(dev, report):
     log(f"phase 12: took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ----------------------------------------------------------------------
+# Phase 13: the substrate's training path and its MoE family
+# ----------------------------------------------------------------------
+
+# (a) internlm2-1.8b training at full width and depth
+TRAIN_STEPS, TRAIN_B, TRAIN_S, TRAIN_LR = 10, 4, 1024, 3e-4
+# (b) the card against the CPU: the smoke configs in f32, TF32 off
+CARD_CPU_ARCHS = ("internlm2-1.8b", "deepseek-moe-16b", "mixtral-8x7b")
+CARD_CPU_STEPS, CARD_CPU_B, CARD_CPU_S, CARD_CPU_RTOL = 3, 2, 64, 1e-4
+# (c) remat and the chunked loss at smoke width, f32, S = 1024 (two loss
+# chunks of the configs' 512)
+REMAT_ARCHS = ("internlm2-1.8b", "deepseek-moe-16b")
+REMAT_B, REMAT_S, REMAT_TOL = 2, 1024, 1e-5
+# (d) deepseek-moe-16b whole, served on phase 12's streams; its f32 decode
+# against prefill on a 4-layer copy at the drop-free capacity factor
+MOE_ARCH = "deepseek-moe-16b"
+MOE_PARAMS = 16_375_728_128
+MOE_CONSIST_LAYERS = 4
+# (e) full width, reduced depth: deepseek-moe-16b's dense layer and one MoE
+# layer trained; mixtral-8x7b's two layers in f32 past its 4,096 window
+MOE_TRAIN_LAYERS, MOE_TRAIN_PARAMS, MOE_TRAIN_STEPS = 2, 1_091_315_712, 5
+MIX_ARCH, MIX_LAYERS, MIX_PARAMS = "mixtral-8x7b", 2, 3_164_688_384
+MIX_PROMPT, MIX_STEPS = 4160, 8
+
+
+def drop_free(cfg):
+    """``cfg`` with capacity factor ``n_experts``: no routed choice can
+    drop, so a token's output does not depend on its group's peers."""
+    import dataclasses
+    return dataclasses.replace(cfg, moe=cfg.moe._replace(
+        capacity_factor=float(cfg.moe.n_experts)))
+
+
+def train_batches(seed, cfg, b, s, n, dev):
+    """``data.tokens.batches`` as tensors on ``dev``."""
+    import torch
+    from repro_torch.data.tokens import batches
+    return [{"tokens": torch.as_tensor(t.tokens, device=dev),
+             "targets": torch.as_tensor(t.targets, device=dev),
+             "mask": torch.as_tensor(t.mask, device=dev)}
+            for t in batches(seed, cfg.vocab_size, b, s, n)]
+
+
+def train_full_width(dev):
+    """(a) internlm2-1.8b: f32 masters from seed 0 at full width and depth,
+    bf16 compute, remat on; TRAIN_STEPS steps of ``batches(0, vocab,
+    TRAIN_B, TRAIN_S, TRAIN_STEPS)``, then one profiled step."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import count_params, init_params
+    from repro_torch.optim import AdamWConfig, init_opt_state, schedule
+    cfg = get_config(LM_ARCH, "full")
+    check(cfg.remat and cfg.dtype == torch.bfloat16
+          and cfg.loss_chunk == 512, f"{LM_ARCH}: not remat on, bf16, "
+          f"loss_chunk 512")
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = init_params(0, cfg, device=dev.type, master=True)
+    state = init_opt_state(model)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_params = count_params(model)
+    check(n_params == LM_PARAMS, f"{LM_ARCH} masters: {n_params:,} "
+          f"parameters, not {LM_PARAMS:,}")
+    check(all(p.dtype == torch.float32 and p.requires_grad
+              for p in model.parameters()), "the masters are not f32 "
+          "trainable")
+    held = torch.cuda.memory_allocated()
+    step = make_train_step(cfg, opt)
+    data = train_batches(0, cfg, TRAIN_B, TRAIN_S, TRAIN_STEPS, dev)
+    torch.cuda.reset_peak_memory_stats()
+    rows, walls = [], []
+    for i, batch in enumerate(data):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(model, state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        rows.append(m)
+        check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+              f"(a) step {i + 1}: loss {m['loss']}, grad_norm "
+              f"{m['grad_norm']}")
+        check(m["lr"] == schedule(opt, i + 1), f"(a) step {i + 1}: lr "
+              f"{m['lr']} is not the schedule's {schedule(opt, i + 1)}")
+        log(f"phase 13 (a): step {i + 1}: loss {m['loss']:.6f}, nll "
+            f"{m['nll']:.6f}, grad_norm {m['grad_norm']:.6f}, lr "
+            f"{m['lr']:.6e}, wall {walls[-1]:.4f} s")
+    peak = torch.cuda.max_memory_allocated()
+    check(rows[-1]["loss"] < rows[0]["loss"], f"(a) the loss did not fall: "
+          f"{[r['loss'] for r in rows]}")
+    busy, pwall, by_name = profiled_busy(lambda: step(model, state,
+                                                      data[-1]))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    med = float(np.median(walls[2:]))
+    tokens = TRAIN_B * TRAIN_S
+    log(f"phase 13 (a): {LM_ARCH} full ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}), {n_params:,} f32 master parameters built in "
+        f"{t_build:.3f} s, {lm_gib(held)} with m and v; {TRAIN_STEPS} steps "
+        f"of B = {TRAIN_B}, S = {TRAIN_S}, lr {TRAIN_LR}, warmup 1, bf16 "
+        f"compute, remat on: loss {rows[0]['loss']:.6f} -> "
+        f"{rows[-1]['loss']:.6f}; median step wall (steps 3-{TRAIN_STEPS}) "
+        f"{med:.4f} s (first {walls[0]:.4f} s), {tokens / med:.1f} tokens/s,"
+        f" model {6 * n_params * tokens / med / 1e12:.1f} TFLOP/s as "
+        f"6 N tokens / step wall (the remat recompute not counted); peak "
+        f"memory {lm_gib(peak)}; one profiled step: device busy "
+        f"{busy:.2f} ms of {pwall:.2f} ms wall, idle share "
+        f"{1 - busy / pwall:.4f}; largest device items (ms) " + ", ".join(
+            f"{ms:.2f} {name.replace('void at::native::', '')[:80]}"
+            for name, ms in top) + f"; {card_line()}")
+    del model, state, data
+    torch.cuda.empty_cache()
+
+
+def card_against_cpu(dev):
+    """(b) the smoke configs in f32 (TF32 off): masters from seed 0 built
+    on the CPU and copied to the card, CARD_CPU_STEPS ``train_step``s on
+    each device on the same batches. Loss and grad_norm every step, and
+    the parameters after step 1, within CARD_CPU_RTOL relative; a
+    parameter whose step-1 gradient is under 1e-2 of its tensor's largest
+    may move by Adam's ``lr`` with either sign, so it is held within
+    ``2 * lr`` instead."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=CARD_CPU_STEPS)
+    for arch in CARD_CPU_ARCHS:
+        cfg = dataclasses.replace(get_config(arch, "smoke"),
+                                  dtype=torch.float32)
+        cpu = init_params(0, cfg, device="cpu", master=True)
+        card = copy.deepcopy(cpu).to(dev)
+        s_cpu, s_card = init_opt_state(cpu), init_opt_state(card)
+        step = make_train_step(cfg, opt)
+        data = train_batches(1, cfg, CARD_CPU_B, CARD_CPU_S, CARD_CPU_STEPS,
+                             "cpu")
+        worst, sharp_err, loose_err = 0.0, 0.0, 0.0
+        for i, batch in enumerate(data):
+            a = step(cpu, s_cpu, batch)
+            b = step(card, s_card, {k: v.to(dev) for k, v in batch.items()})
+            for k in ("loss", "grad_norm"):
+                rel = abs(b[k] - a[k]) / abs(a[k])
+                worst = max(worst, rel)
+                check(rel <= CARD_CPU_RTOL, f"(b) {arch} step {i + 1}: {k} "
+                      f"card {b[k]} against cpu {a[k]}")
+            if i:
+                continue
+            for (n, p), (_, q) in zip(cpu.named_parameters(),
+                                      card.named_parameters()):
+                p, q = p.detach(), q.detach().cpu()
+                g = s_cpu["m"][n].abs()
+                sharp = g >= 1e-2 * g.max()
+                sharp_err = max(sharp_err, close(
+                    q[sharp], p[sharp], CARD_CPU_RTOL, 1e-7,
+                    f"(b) {arch}: {n} after step 1"))
+                loose_err = max(loose_err, float((q - p).abs().max()))
+                check(loose_err <= 2 * a["lr"] + 1e-6, f"(b) {arch}: {n} "
+                      f"parted by {loose_err} after step 1")
+        log(f"phase 13 (b): {arch} smoke, f32, TF32 off, {CARD_CPU_STEPS} "
+            f"steps of B = {CARD_CPU_B}, S = {CARD_CPU_S} on the card and "
+            f"the CPU: loss and grad_norm largest relative difference "
+            f"{worst:.3e} (bound {CARD_CPU_RTOL}); parameters after step 1 "
+            f"max abs diff {sharp_err:.3e} where the gradient is sharp "
+            f"(rtol {CARD_CPU_RTOL}), {loose_err:.3e} over all (bound "
+            f"2 lr = {2 * opt.lr})")
+
+
+def remat_and_chunking(dev):
+    """(c) on the card, f32, smoke width, S = REMAT_S: one step's loss and
+    gradients with remat on against off, and the chunked loss against the
+    single shot at the same weights, within REMAT_TOL."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import batches
+    from repro_torch.models import init_params, train_forward
+
+    def loss_and_grads(cfg, batch):
+        model = init_params(0, cfg, device=dev.type, master=True)
+        loss, _ = train_forward(model, cfg, batch)
+        return loss.detach(), torch.autograd.grad(loss, list(
+            model.parameters()))
+
+    for arch in REMAT_ARCHS:
+        base = dataclasses.replace(get_config(arch, "smoke"),
+                                   dtype=torch.float32)
+        b = next(batches(2, base.vocab_size, REMAT_B, REMAT_S, 1))
+        batch = {"tokens": b.tokens, "targets": b.targets, "mask": b.mask}
+        runs = {name: loss_and_grads(dataclasses.replace(base, **kw), batch)
+                for name, kw in (("remat off", dict(remat=False)),
+                                 ("remat on", dict(remat=True)),
+                                 ("single shot", dict(loss_chunk=0)))}
+        ref_loss, ref_grads = runs["remat off"]
+        errs = {}
+        for name in ("remat on", "single shot"):
+            loss, grads = runs[name]
+            errs[name] = max([close(loss, ref_loss, REMAT_TOL, REMAT_TOL,
+                                    f"(c) {arch}: {name} loss")]
+                             + [close(g, r, REMAT_TOL, REMAT_TOL,
+                                      f"(c) {arch}: {name} gradients")
+                                for g, r in zip(grads, ref_grads)])
+        log(f"phase 13 (c): {arch} smoke, f32, B = {REMAT_B}, S = {REMAT_S} "
+            f"(loss_chunk {base.loss_chunk}, chunk_q {base.chunk_q}): loss "
+            f"{float(ref_loss):.6f}; remat on against off max abs diff "
+            f"{errs['remat on']:.3e}, chunked loss against the single shot "
+            f"{errs['single shot']:.3e} over the loss and every gradient "
+            f"(rtol/atol {REMAT_TOL})")
+
+
+def serve_moe_whole(dev, report):
+    """(d) deepseek-moe-16b whole (28 layers, bf16) on phase 12's two
+    streams through ``ServeEngine``, the FedGenGMM monitor attached to the
+    cli stream's engine; the monitor's four clients' fits, round and
+    scoring at full width; then f32 decode against prefill on a
+    MOE_CONSIST_LAYERS-layer copy at the drop-free capacity factor."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import pack_params
+    from repro_torch.models import count_params, init_params
+    from repro_torch.monitor import FedGMMMonitor, MonitorConfig
+    cfg = get_config(MOE_ARCH, "full")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = init_params(0, cfg, device=dev.type)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_params = count_params(model)
+    mem = torch.cuda.memory_allocated() - base
+    check(n_params == MOE_PARAMS, f"{MOE_ARCH}: {n_params:,} parameters, "
+          f"not {MOE_PARAMS:,}")
+    check(model.layers[0].ffn is not None and all(
+        b.moe is not None for b in model.layers[1:]), f"{MOE_ARCH}: not one "
+        f"dense layer then MoE layers")
+    log(f"phase 13 (d): {MOE_ARCH} full ({cfg.n_layers} layers, "
+        f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} + "
+        f"{cfg.moe.n_shared} shared, capacity factor "
+        f"{cfg.moe.capacity_factor}) from seed 0: {n_params:,} parameters, "
+        f"bf16 {lm_gib(mem)} allocated, built in {t_build:.3f} s")
+    mon = FedGMMMonitor(cfg, MonitorConfig(), device=dev.type)
+    observed = []
+    observe = mon.observe
+    mon.observe = lambda cid, p, b: (observed.append(cid), observe(cid, p, b))
+    for name in LM_STREAMS:
+        _, stats = serve_lm_stream(dev, cfg, model, name,
+                                   monitor=mon if name == "cli" else None)
+        log(f"phase 13 (d): {MOE_ARCH} {name}: {stats}; {card_line()}")
+    n_cli, _, _, cli_batch, _ = LM_STREAMS["cli"]
+    check(observed == [0] * -(-n_cli // cli_batch),
+          f"the monitor observed {observed}, not once a batch as client 0")
+    mon, id_s, ood_s, feats, walls = lm_monitor(dev, cfg, model)
+    g = mon.global_gmm
+    plain = -ref.gmm_log_prob_packed(feats, *pack_params(
+        g.means, g.covs, torch.log(g.weights)))
+    err = close(torch.as_tensor(np.concatenate([id_s, ood_s])), plain.cpu(),
+                2e-4, 2e-4, "(d) monitor scores against the plain version")
+    log(f"phase 13 (d): the cli stream's monitor observed {len(observed)} "
+        f"batches, once a batch; the monitor at {MOE_ARCH}'s width: "
+        f"features {walls[0]:.3f} s, fits + round {walls[1]:.3f} s, scoring "
+        f"{walls[2]:.3f} s; median anomaly score ID "
+        f"{float(np.median(id_s)):.4f}, OOD {float(np.median(ood_s)):.4f}; "
+        f"scores against the plain version max abs err {err:.3e}")
+    del model, mon
+    torch.cuda.empty_cache()
+    cfg32 = drop_free(dataclasses.replace(cfg, n_layers=MOE_CONSIST_LAYERS,
+                                          dtype=torch.float32))
+    model32 = init_params(0, cfg32, device=dev.type)
+    n32 = count_params(model32)
+    err32, agree32 = lm_consistency(dev, model32, cfg32,
+                                    np.random.default_rng(13), "(d) f32")
+    check(err32 <= LM_ATOL, f"(d) f32 decode against prefill: max abs diff "
+          f"{err32} beyond {LM_ATOL}")
+    log(f"phase 13 (d): {MOE_CONSIST_LAYERS}-layer f32 copy ({n32:,} "
+        f"parameters, {lm_gib(4 * n32)}), capacity factor "
+        f"{cfg32.moe.capacity_factor} (drop-free), decode against prefill, "
+        f"B = {CONSIST_B}, a {CONSIST_PROMPT}-token prompt, {CONSIST_STEPS} "
+        f"steps: max abs diff {err32:.3e} (bound {LM_ATOL}), greedy "
+        f"agreement {agree32:.4f}")
+    del model32
+    torch.cuda.empty_cache()
+
+
+def train_moe_reduced(dev):
+    """(e) deepseek-moe-16b at MOE_TRAIN_LAYERS layers (its dense layer and
+    one MoE layer) at full width: MOE_TRAIN_STEPS steps at B = TRAIN_B,
+    S = TRAIN_S, bf16 compute, remat on. Losses finite and falling, aux
+    finite and above 0, and every routed expert, the router and the
+    shared experts given nonzero gradients (read from Adam's first
+    moment, the sum of the steps' clipped gradients)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import count_params, init_params
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    cfg = dataclasses.replace(get_config(MOE_ARCH, "full"),
+                              n_layers=MOE_TRAIN_LAYERS)
+    model = init_params(0, cfg, device=dev.type, master=True)
+    n_params = count_params(model)
+    check(n_params == MOE_TRAIN_PARAMS, f"(e) {MOE_ARCH} at "
+          f"{MOE_TRAIN_LAYERS} layers: {n_params:,} parameters, not "
+          f"{MOE_TRAIN_PARAMS:,}")
+    state = init_opt_state(model)
+    step = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                            total_steps=MOE_TRAIN_STEPS))
+    torch.cuda.reset_peak_memory_stats()
+    rows, walls = [], []
+    for batch in train_batches(0, cfg, TRAIN_B, TRAIN_S, MOE_TRAIN_STEPS,
+                               dev):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows.append(step(model, state, batch))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r["loss"] for r in rows]
+    auxes = [r["aux"] for r in rows]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"(e) losses not finite and falling: {losses}")
+    check(all(np.isfinite(a) and a > 0 for a in auxes),
+          f"(e) aux not finite and above 0: {auxes}")
+    moe_layer = "layers.1.moe"
+    m = state["m"]
+    for name in ("w_gate", "w_up", "w_down"):
+        per_expert = m[f"{moe_layer}.{name}"].abs().flatten(1).amax(1)
+        check(bool((per_expert > 0).all()), f"(e) {name}: experts "
+              f"{torch.nonzero(per_expert == 0).flatten().tolist()} took "
+              f"no gradient")
+    for name in ("router", "shared.w_gate", "shared.w_up", "shared.w_down"):
+        check(float(m[f"{moe_layer}.{name}"].abs().max()) > 0,
+              f"(e) {name} took no gradient")
+    tokens = TRAIN_B * TRAIN_S
+    med = float(np.median(walls[1:]))
+    log(f"phase 13 (e): {MOE_ARCH} cut to {MOE_TRAIN_LAYERS} layers (the "
+        f"dense layer and one MoE layer; full width), {n_params:,} f32 "
+        f"master parameters, {MOE_TRAIN_STEPS} steps of B = {TRAIN_B}, S = "
+        f"{TRAIN_S}: loss " + " ".join(f"{x:.6f}" for x in losses)
+        + "; aux " + " ".join(f"{x:.6f}" for x in auxes)
+        + "; grad_norm " + " ".join(f"{r['grad_norm']:.4f}" for r in rows)
+        + f"; every expert of w_gate/w_up/w_down, the router and the shared "
+        f"experts took gradients; median step wall (steps 2-"
+        f"{MOE_TRAIN_STEPS}) {med:.4f} s, {tokens / med:.1f} tokens/s; peak "
+        f"memory {lm_gib(peak)}")
+    del model, state
+    torch.cuda.empty_cache()
+
+
+def mixtral_ring_reduced(dev):
+    """(e) mixtral-8x7b at MIX_LAYERS layers, full width, f32, drop-free:
+    a MIX_PROMPT-token prompt (past the 4,096 window), then MIX_STEPS
+    greedy decode steps through a ring cache of the window's capacity and
+    through a full cache with the window mask, logits within LM_ATOL."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import (count_params, decode_step, init_params,
+                                    prefill_forward)
+    cfg = drop_free(dataclasses.replace(get_config(MIX_ARCH, "full"),
+                                        n_layers=MIX_LAYERS,
+                                        dtype=torch.float32))
+    model = init_params(0, cfg, device=dev.type)
+    n_params = count_params(model)
+    check(n_params == MIX_PARAMS, f"(e) {MIX_ARCH} at {MIX_LAYERS} layers: "
+          f"{n_params:,} parameters, not {MIX_PARAMS:,}")
+    w = cfg.window
+    check(MIX_PROMPT > w, "the prompt does not pass the window")
+    prompt = torch.as_tensor(np.random.default_rng(14).integers(
+        0, cfg.vocab_size, (1, MIX_PROMPT)), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    la, ring = prefill_forward(model, cfg, {"tokens": prompt}, capacity=w,
+                               ring=True)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    lb, full = prefill_forward(model, cfg, {"tokens": prompt},
+                               capacity=MIX_PROMPT + MIX_STEPS)
+    check(ring[0]["k"].shape[1] == w, "the ring cache is not the window "
+          "wide")
+    err = close(la, lb, LM_RTOL, LM_ATOL, "(e) mixtral prefill logits")
+    tok = torch.argmax(lb, -1)
+    for i in range(MIX_STEPS):
+        a, ring = decode_step(model, cfg, ring, tok, MIX_PROMPT + i,
+                              ring=True)
+        b, full = decode_step(model, cfg, full, tok, MIX_PROMPT + i)
+        err = max(err, close(a, b, LM_RTOL, LM_ATOL, f"(e) mixtral ring "
+                             f"decode step {i} against the windowed full "
+                             f"cache"))
+        tok = torch.argmax(b, -1)
+    log(f"phase 13 (e): {MIX_ARCH} cut to {MIX_LAYERS} layers (full width, "
+        f"f32, capacity factor {cfg.moe.capacity_factor}), {n_params:,} "
+        f"parameters: a {MIX_PROMPT}-token prompt (prefill {t_prefill:.3f} "
+        f"s), then {MIX_STEPS} decode steps through a ring cache of "
+        f"capacity {w} against a full cache with the window mask: logits "
+        f"max abs diff {err:.3e} (bound {LM_ATOL})")
+    del model, ring, full
+    torch.cuda.empty_cache()
+
+
+def phase_training_moe(dev, report):
+    """Phase 13: (a) internlm2-1.8b trained at full width and depth; (b)
+    the smoke configs' steps on the card against the CPU; (c) remat and
+    the chunked loss; (d) deepseek-moe-16b whole behind ``ServeEngine``
+    with the monitor; (e) deepseek-moe-16b trained and mixtral-8x7b's ring
+    against its window at full width, reduced depth."""
+    t_phase = time.perf_counter()
+    reset_counts()
+    train_full_width(dev)
+    card_against_cpu(dev)
+    remat_and_chunking(dev)
+    serve_moe_whole(dev, report)
+    launches = kernel_counts()
+    for name in PATH_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched by the "
+              f"monitor in phase 13")
+    for entry in report["kernels"]:
+        entry["launches_by_path"]["transformer_training_moe"] = \
+            launches[entry["name"]]
+    log(f"phase 13 (d): kernel launches {launches}")
+    train_moe_reduced(dev)
+    mixtral_ring_reduced(dev)
+    log(f"phase 13: took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: the repository (src/repro_torch) is not beside "
@@ -3509,7 +3966,8 @@ def main() -> int:
               ("uplink transforms and async rounds", phase_uplink_async),
               ("mesh runtime, continual and split-merge",
                phase_mesh_extensions),
-              ("transformer serving", phase_transformer_serving)]
+              ("transformer serving", phase_transformer_serving),
+              ("transformer training and MoE", phase_training_moe)]
     for name, fn in phases:
         if failures:
             log(f"skipping phase {name!r} after a failure")

@@ -3,7 +3,8 @@
 
 Every registered architecture has a full-size ``ModelConfig`` (the paper's
 dimensions) and a ``smoke`` reduced variant used by the CPU tests. The port
-registers the five dense-attention decoders; the MoE, recurrent, xLSTM and
+registers the five dense-attention decoders and the two MoE ones
+(deepseek-moe-16b, mixtral-8x7b); the recurrent, xLSTM and
 encoder-decoder architectures register with their families (ROADMAP Queue
 A), and the dry-run's ``input_specs``/``decode_capacity``/``uses_ring``
 with the dry-run.
@@ -50,5 +51,6 @@ def list_archs() -> list[str]:
 
 def _ensure_loaded():
     if not _REGISTRY:
-        from repro_torch.configs import (deepseek_67b, gemma_7b,  # noqa: F401
-                                         internlm2_1_8b, internvl2_26b, yi_6b)
+        from repro_torch.configs import (  # noqa: F401
+            deepseek_67b, deepseek_moe_16b, gemma_7b, internlm2_1_8b,
+            internvl2_26b, mixtral_8x7b, yi_6b)

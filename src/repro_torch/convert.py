@@ -7,8 +7,10 @@ The JAX package's models and splits arrive here as numpy arrays
 :func:`split_to_clients` puts a padded numpy ``ClientSplit`` on a device
 as :class:`SplitClients`. For the transformer substrate,
 :func:`model_params_from_jax` builds the port's model from the JAX
-package's parameter tree and :func:`monitor_from_jax` carries a JAX
-monitor's projection and global GMM across.
+package's parameter tree (:func:`model_params_to_jax` is its inverse, so
+the port's trainer writes checkpoints in the JAX package's layout) and
+:func:`monitor_from_jax` carries a JAX monitor's projection and global
+GMM across.
 """
 from __future__ import annotations
 
@@ -16,12 +18,14 @@ import functools
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.core.config import resolve_device
 from repro_torch.core.gmm import GMM
 from repro_torch.fed.runtime import SplitClients
 from repro_torch.models.attention import Attention
 from repro_torch.models.mlp import MLP
+from repro_torch.models.moe import MoE
 from repro_torch.models.transformer import (Block, ModelConfig, Transformer,
                                             check_supported)
 from repro_torch.monitor.activation_monitor import (FedGMMMonitor,
@@ -58,43 +62,96 @@ def _cast(a, dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32)).to(device, dtype)
 
 
-def _block_from_jax(p: dict, cfg: ModelConfig, device) -> Block:
-    """One decoder layer of the JAX tree: matrices in ``cfg.dtype``, the
-    norm scales in float32."""
-    if "ffn" not in p or "attn" not in p:
+def _mlp_from_jax(f: dict, mat) -> MLP:
+    return MLP(mat(f["w_up"]), mat(f["w_down"]),
+               mat(f["w_gate"]) if "w_gate" in f else None)
+
+
+def _block_from_jax(p: dict, dtype, device) -> Block:
+    """One decoder layer of the JAX tree: matrices in ``dtype``, the norm
+    scales in float32; a dense ``ffn`` or an MoE ``moe`` block."""
+    if "attn" not in p or ("ffn" not in p and "moe" not in p):
         raise NotImplementedError(
             f"layer with keys {sorted(p)} is not ported yet (ROADMAP Queue A)")
-    a, f = p["attn"], p["ffn"]
-    mat = functools.partial(_cast, dtype=cfg.dtype, device=device)
-    return Block(_cast(p["ln1"], torch.float32, device),
-                 Attention(mat(a["wq"]), mat(a["wk"]), mat(a["wv"]),
-                           mat(a["wo"])),
-                 _cast(p["ln2"], torch.float32, device),
-                 MLP(mat(f["w_up"]), mat(f["w_down"]),
-                     mat(f["w_gate"]) if "w_gate" in f else None))
+    a = p["attn"]
+    mat = functools.partial(_cast, dtype=dtype, device=device)
+    attention = Attention(mat(a["wq"]), mat(a["wk"]), mat(a["wv"]),
+                          mat(a["wo"]))
+    ln1 = _cast(p["ln1"], torch.float32, device)
+    ln2 = _cast(p["ln2"], torch.float32, device)
+    if "ffn" in p:
+        return Block(ln1, attention, ln2, ffn=_mlp_from_jax(p["ffn"], mat))
+    m = p["moe"]
+    shared = _mlp_from_jax(m["shared"], mat) if "shared" in m else None
+    return Block(ln1, attention, ln2, moe=MoE(
+        mat(m["router"]), mat(m["w_gate"]), mat(m["w_up"]),
+        mat(m["w_down"]), shared))
 
 
-def model_params_from_jax(params_np: dict, cfg: ModelConfig,
-                          device="cuda") -> Transformer:
+def model_params_from_jax(params_np: dict, cfg: ModelConfig, device="cuda",
+                          *, dtype=None) -> Transformer:
     """The port's model from the JAX package's parameter tree with numpy
     leaves (``jax.tree.map(np.asarray, params)``): ``head_layers``, the
     stacked ``blocks`` unstacked over their leading group axis (group g,
     pattern position p is layer ``first_k_dense + g * len(pattern) + p``),
-    then ``tail``. Matrices are cast once to ``cfg.dtype``, as the
-    reference's serving steps cast them."""
+    then ``tail``. Matrices are cast once to ``dtype`` (default
+    ``cfg.dtype``, as the reference's serving steps cast them); norm
+    scales stay float32. ``dtype=torch.float32`` gives the float32 masters
+    a trainer updates (``.requires_grad_()`` turns their gradients on)."""
     check_supported(cfg)
     device = resolve_device(device)
-    layers = [_block_from_jax(p, cfg, device)
+    dtype = cfg.dtype if dtype is None else dtype
+    layers = [_block_from_jax(p, dtype, device)
               for p in params_np["head_layers"]]
     for g in range(cfg.n_groups):
         for stacked in params_np["blocks"]:
             layers.append(_block_from_jax(
-                _index_tree(stacked, g), cfg, device))
-    layers += [_block_from_jax(p, cfg, device) for p in params_np["tail"]]
-    return Transformer(cfg, _cast(params_np["embed"], cfg.dtype, device),
-                       _cast(params_np["head"], cfg.dtype, device),
+                _index_tree(stacked, g), dtype, device))
+    layers += [_block_from_jax(p, dtype, device) for p in params_np["tail"]]
+    return Transformer(cfg, _cast(params_np["embed"], dtype, device),
+                       _cast(params_np["head"], dtype, device),
                        _cast(params_np["final_norm"], torch.float32, device),
                        layers)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A float32 numpy copy (never a view of the tensor's memory)."""
+    return np.array(t.detach().to("cpu", torch.float32).numpy())
+
+
+def _module_tree(m: nn.Module) -> dict:
+    """A module's parameters as the JAX package's nested dict of numpy
+    leaves (its submodule and parameter names are the JAX keys)."""
+    tree = {n: _numpy(p) for n, p in m.named_parameters(recurse=False)}
+    for name, child in m.named_children():
+        tree[name] = _module_tree(child)
+    return tree
+
+
+def model_params_to_jax(model: Transformer) -> dict:
+    """The inverse of :func:`model_params_from_jax`: the JAX package's
+    parameter tree with numpy leaves (``embed``, ``head``, ``final_norm``,
+    ``head_layers``, ``blocks`` stacked over their group axis, one entry a
+    pattern position and ``None`` when there is no full group, and
+    ``tail``), so ``repro.checkpoint.load_checkpoint`` restores what
+    ``repro_torch.checkpoint.save_checkpoint`` writes of it. Leaves are
+    float32 numpy arrays (bf16 is widened exactly)."""
+    cfg = model.cfg
+    layers = [_module_tree(b) for b in model.layers]
+    head, n = cfg.first_k_dense, len(cfg.pattern)
+    body = layers[head:head + cfg.n_groups * n]
+    blocks = [_stack([body[g * n + i] for g in range(cfg.n_groups)])
+              if cfg.n_groups else None for i in range(n)]
+    return {"embed": _numpy(model.embed), "head": _numpy(model.head),
+            "final_norm": _numpy(model.final_norm),
+            "head_layers": layers[:head], "blocks": blocks,
+            "tail": layers[head + cfg.n_groups * n:]}
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
 
 
 def _index_tree(tree, i):

@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.common import (apply_rope, dense_init, frozen,
                                        make_rope)
@@ -100,14 +101,22 @@ def gqa_scores_softmax_out(q, k, v, mask):
     return out.to(q.dtype)
 
 
+def _chunk_attention(qi, k, v, pi, k_positions, causal, window):
+    mask = _mask(pi, k_positions, causal, window)
+    return flat_scores_softmax_out(qi, k, v, mask[None])
+
+
 def chunked_causal_attention(q, k, v, q_positions, k_positions, *,
                              causal: bool = True,
                              window: Optional[int] = None,
-                             chunk: int = 256) -> torch.Tensor:
+                             chunk: int = 256,
+                             remat: bool = False) -> torch.Tensor:
     """Flat-head full-sequence attention over query chunks, so the
     (cq, Sk) score tile (not (Sq, Sk)) is the peak transient. Queries are
     padded to a chunk multiple (positions repeat the last one), as in the
-    reference."""
+    reference. With ``remat`` each chunk is rematerialised (the
+    reference's ``jax.checkpoint`` of its chunk body), so backward
+    recomputes the (cq, Sk) scores instead of keeping them."""
     sq = q.shape[1]
     if sq <= chunk:
         mask = _mask(q_positions, k_positions, causal, window)
@@ -120,10 +129,11 @@ def chunked_causal_attention(q, k, v, q_positions, k_positions, *,
                                  q_positions[-1:].expand(pad)])
     outs = []
     for start in range(0, sq + pad, chunk):
-        mask = _mask(q_positions[start:start + chunk], k_positions, causal,
-                     window)
-        outs.append(flat_scores_softmax_out(q[:, start:start + chunk], k, v,
-                                            mask[None]))
+        args = (q[:, start:start + chunk], k, v,
+                q_positions[start:start + chunk], k_positions, causal,
+                window)
+        outs.append(checkpoint(_chunk_attention, *args, use_reentrant=False)
+                    if remat else _chunk_attention(*args))
     return torch.cat(outs, dim=1)[:, :sq]
 
 
@@ -164,10 +174,11 @@ def _out_proj(params: Attention, out, dtype):
 
 def attention_forward(params: Attention, x, positions, dims: AttnDims, *,
                       causal: bool = True, chunk: int = 256,
-                      return_kv: bool = False):
-    """Prefill path (flat heads). positions (S,) absolute, float32.
-    Returns out (B,S,D), and with ``return_kv`` the rotated grouped (k, v)
-    as cache material."""
+                      return_kv: bool = False, remat: bool = False):
+    """Training / prefill path (flat heads). positions (S,) absolute,
+    float32. Returns out (B,S,D), and with ``return_kv`` the rotated
+    grouped (k, v) as cache material. ``remat`` rematerialises each query
+    chunk (training)."""
     g = dims.n_heads // dims.n_kv_heads
     q = _project_q_flat(params, x)
     k, v = _project_kv(params, x)
@@ -177,7 +188,7 @@ def attention_forward(params: Attention, x, positions, dims: AttnDims, *,
     out = chunked_causal_attention(q, _repeat_heads(k, g),
                                    _repeat_heads(v, g), positions, positions,
                                    causal=causal, window=dims.window,
-                                   chunk=chunk)
+                                   chunk=chunk, remat=remat)
     out = _out_proj(params, out, x.dtype)
     if return_kv:
         return out, (k, v)

@@ -77,8 +77,9 @@ def embed_init(gen: torch.Generator, shape) -> torch.Tensor:
 
 
 def frozen(t: torch.Tensor) -> nn.Parameter:
-    """A parameter that takes no gradient (the port serves; training waits
-    for ROADMAP Queue A)."""
+    """A parameter that takes no gradient, as a serving model's do; a
+    training master turns gradients on for all of them at once
+    (``model.requires_grad_()``)."""
     return nn.Parameter(t, requires_grad=False)
 
 

@@ -1,24 +1,42 @@
-"""The transformer stack of the substrate, dense-attention decoders (port of
+"""The transformer stack of the substrate: dense-attention and MoE decoders,
+their training loss, prefill and decode (port of
 ``repro/models/transformer.py``).
 
 One config object describes every architecture the JAX package registers.
-This port runs the dense-attention layer types (``attn``, ``swa``,
-``local_attn``, ``dense_attn``) with the vision-prefix frontend: the
-decoders of internlm2, yi, gemma, deepseek-67b and internvl2. The MoE,
-RG-LRU, xLSTM and encoder-decoder families and the training loss raise
-``NotImplementedError``: they are ROADMAP Queue A's later items.
+This port runs the attention layer types (``attn``, ``swa``,
+``local_attn``, ``dense_attn``) with a dense or an MoE feed-forward block
+(``cfg.moe``; DeepSeekMoE's ``first_k_dense`` leading layers keep a dense
+one of width ``first_dense_d_ff``) and the vision-prefix frontend: the
+decoders of internlm2, yi, gemma, deepseek-67b, internvl2, mixtral and
+deepseek-moe. The RG-LRU (``rglru``), xLSTM (``mlstm``, ``slstm``) and
+encoder-decoder (``xattn``, ``n_enc_layers``) families and the audio
+frontend raise ``NotImplementedError``: they are ROADMAP Queue A's later
+items.
 
 The model is an ``nn.Module`` (:class:`Transformer`) whose layers form one
 ``nn.ModuleList`` in layer order; the JAX package's stacked ``blocks``
 (a leading group axis, for its layer scan) are unstacked by
-``repro_torch.convert.model_params_from_jax``. Matrices are held in the
-compute dtype (``cfg.dtype``), cast once when the model is built or
-loaded, which gives the values of the reference's per-op
-``.astype(x.dtype)``; norm scales stay float32.
+``repro_torch.convert.model_params_from_jax``. A serving model holds its
+matrices in the compute dtype (``cfg.dtype``), cast once when it is built
+or loaded, which gives the values of the reference's per-op
+``.astype(x.dtype)``; norm scales stay float32; nothing takes a gradient.
+A training master (``init_params(..., master=True)``) holds every leaf in
+float32 with gradients on; ``repro_torch.launch.steps.make_train_step``
+casts every floating leaf, the norm scales included, to ``cfg.dtype`` once
+a step, as the reference's train step does.
 
-Two entry points serve:
+Three entry points:
+    train_forward   — full-sequence causal-LM loss (chunked over the vocab
+                      head), with MoE's load-balance loss
     prefill_forward — forward + KV cache construction
     decode_step     — one token with the cache (full, windowed, or ring)
+
+``cfg.remat`` rematerialises, where gradients are on, at the reference's
+three points: each pattern group of layers, each loss chunk and each query
+chunk of attention (``torch.utils.checkpoint``, non-reentrant). The
+recomputation reads the module's tensors again, so a caller that swaps
+them in (``torch.func.functional_call``) runs the backward inside the
+same call.
 
 The decode cache is one preallocated buffer per layer, ``k`` and ``v``
 each (B, C, KV, hd) in the compute dtype, written in place at
@@ -31,10 +49,12 @@ from typing import Any, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.config import make_generator, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import embed_init, frozen, rms_norm
 
 ATTN_TYPES = ("attn", "swa", "local_attn", "dense_attn")
@@ -45,10 +65,9 @@ LATER = "ROADMAP Queue A"
 class ModelConfig:
     """The JAX package's model config, field for field (the configs are
     compared with it). Carried over and not yet read by the port:
-    ``first_dense_d_ff`` (MoE heads only, which raise), ``d_rnn``,
-    ``xlstm`` and ``src_ratio`` (their families wait for ROADMAP Queue A),
-    ``loss_chunk`` and ``remat`` (training), ``long_window`` (the
-    dry-run's long-context cell)."""
+    ``d_rnn``, ``xlstm`` and ``src_ratio`` (their families wait for
+    ROADMAP Queue A) and ``long_window`` (the dry-run's long-context
+    cell)."""
 
     name: str
     n_layers: int
@@ -65,8 +84,8 @@ class ModelConfig:
     local_window: int = 2048            # window for "local_attn" layers
     rope_theta: float = 10000.0
     embed_scale: bool = False           # gemma-style sqrt(d) embed scaling
-    # moe (the family waits for ROADMAP Queue A)
-    moe: Optional[Any] = None
+    # moe
+    moe: Optional[moe_mod.MoEDims] = None
     first_k_dense: int = 0
     first_dense_d_ff: int = 0
     # rglru
@@ -109,11 +128,8 @@ class ModelConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family outside the ported
-    dense-attention decoders."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet ({LATER})")
+    """Raise ``NotImplementedError`` for a family the port does not run
+    yet: RG-LRU, xLSTM, encoder-decoder and the audio frontend."""
     if cfg.n_enc_layers:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder (xattn) layers are not ported yet "
@@ -133,15 +149,19 @@ def check_supported(cfg: ModelConfig) -> None:
 # ======================================================================
 
 class Block(nn.Module):
-    """One dense-attention decoder layer: pre-norm attention and MLP."""
+    """One decoder layer: pre-norm attention, then a dense ``ffn`` or an
+    MoE ``moe`` feed-forward block (the JAX package's keys)."""
 
     def __init__(self, ln1, attention: attn.Attention, ln2,
-                 ffn: mlp_mod.MLP):
+                 ffn: mlp_mod.MLP = None, moe: moe_mod.MoE = None):
         super().__init__()
+        if (ffn is None) == (moe is None):
+            raise ValueError("a block takes exactly one of ffn and moe")
         self.ln1 = frozen(ln1)
         self.attn = attention
         self.ln2 = frozen(ln2)
         self.ffn = ffn
+        self.moe = moe
 
 
 class Transformer(nn.Module):
@@ -167,32 +187,45 @@ class Transformer(nn.Module):
 
 
 def _layer_init(gen: torch.Generator, cfg: ModelConfig,
-                dense_ffn: bool = False) -> Block:
+                dense_ffn: bool = False, dtype=None) -> Block:
+    """One layer, matrices in ``dtype`` (default ``cfg.dtype``), norm
+    scales float32 zeros."""
+    dtype = cfg.dtype if dtype is None else dtype
     d = cfg.d_model
     zeros = torch.zeros((d,), dtype=torch.float32, device=gen.device)
-    attention = attn.attn_init(gen, d, cfg.attn_dims(), cfg.dtype)
+    attention = attn.attn_init(gen, d, cfg.attn_dims(), dtype)
+    if cfg.moe is not None and not dense_ffn:
+        return Block(zeros, attention, zeros.clone(),
+                     moe=moe_mod.moe_init(gen, d, cfg.moe, dtype))
     width = cfg.first_dense_d_ff if dense_ffn and cfg.first_dense_d_ff \
         else cfg.d_ff
-    ffn = mlp_mod.mlp_init(gen, d, width, cfg.gated_mlp, cfg.dtype)
-    return Block(zeros, attention, zeros.clone(), ffn)
+    ffn = mlp_mod.mlp_init(gen, d, width, cfg.gated_mlp, dtype)
+    return Block(zeros, attention, zeros.clone(), ffn=ffn)
 
 
-def init_params(seed, cfg: ModelConfig, device="cuda") -> Transformer:
+def init_params(seed, cfg: ModelConfig, device="cuda", *,
+                master: bool = False) -> Transformer:
     """A model with weights drawn in float32 from ``seed`` (an int, or a
-    ``torch.Generator`` on ``device``), then cast to ``cfg.dtype`` tensor by
-    tensor. Norm scales start at zero (the norm scales by ``1 + scale``)."""
+    ``torch.Generator`` on ``device``). Norm scales start at zero (the norm
+    scales by ``1 + scale``). A serving model (``master=False``) casts its
+    matrices to ``cfg.dtype`` tensor by tensor and takes no gradient; a
+    training master keeps every leaf float32 with gradients on (the
+    reference's ``init_params``, which its train step casts)."""
     check_supported(cfg)
     device = resolve_device(device)
     gen = seed if isinstance(seed, torch.Generator) else \
         make_generator(seed, device)
+    dtype = torch.float32 if master else cfg.dtype
     d, v = cfg.d_model, cfg.vocab_size
-    embed = embed_init(gen, (v, d)).to(cfg.dtype)
-    head = embed_init(gen, (d, v)).to(cfg.dtype)
-    layers = [_layer_init(gen, cfg, dense_ffn=i < cfg.first_k_dense)
+    embed = embed_init(gen, (v, d)).to(dtype)
+    head = embed_init(gen, (d, v)).to(dtype)
+    layers = [_layer_init(gen, cfg, dense_ffn=i < cfg.first_k_dense,
+                          dtype=dtype)
               for i in range(cfg.n_layers)]
-    return Transformer(cfg, embed, head,
-                       torch.zeros((d,), dtype=torch.float32, device=device),
-                       layers)
+    model = Transformer(cfg, embed, head,
+                        torch.zeros((d,), dtype=torch.float32, device=device),
+                        layers)
+    return model.requires_grad_(master)
 
 
 # ======================================================================
@@ -204,21 +237,30 @@ def _window(cfg: ModelConfig, ltype: str) -> Optional[int]:
         cfg.local_window if ltype == "local_attn" else None)
 
 
+def _remat(cfg: ModelConfig) -> bool:
+    return cfg.remat and torch.is_grad_enabled()
+
+
 def _layer_forward(p: Block, cfg: ModelConfig, ltype: str, x, positions,
                    causal: bool = True):
-    """Full-sequence layer. Returns (x, state): state is the layer's
-    rotated (k, v), the seed of its decode cache (the reference's MoE
-    auxiliary loss, always zero here, is not carried)."""
+    """Full-sequence layer. Returns (x, aux, state): aux is the MoE
+    load-balance loss (a float32 zero for a dense layer), state the
+    layer's rotated (k, v), the seed of its decode cache."""
     if ltype not in ATTN_TYPES:
         raise NotImplementedError(
             f"layer type {ltype!r} is not ported yet ({LATER})")
     dims = cfg.attn_dims(_window(cfg, ltype))
     out, (k, v) = attn.attention_forward(
         p.attn, rms_norm(x, p.ln1), positions, dims, causal=causal,
-        chunk=cfg.chunk_q, return_kv=True)
+        chunk=cfg.chunk_q, return_kv=True, remat=_remat(cfg))
     x = x + out
-    x = x + mlp_mod.mlp_forward(p.ffn, rms_norm(x, p.ln2), cfg.activation)
-    return x, {"k": k, "v": v}
+    h = rms_norm(x, p.ln2)
+    if p.moe is not None:
+        out, aux = moe_mod.moe_forward(p.moe, h, cfg.moe, cfg.activation)
+    else:
+        out = mlp_mod.mlp_forward(p.ffn, h, cfg.activation)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + out, aux, {"k": k, "v": v}
 
 
 def _embed(params: Transformer, cfg: ModelConfig, tokens):
@@ -239,24 +281,90 @@ def _with_prefix(params: Transformer, cfg: ModelConfig, batch: dict):
     return x, 0
 
 
+def _segments(params: Transformer, cfg: ModelConfig):
+    """The layers as (span of (block, type) pairs, rematerialised) in the
+    reference's order: each ``first_k_dense`` head layer alone, each
+    pattern group (the reference's scan body, under ``jax.checkpoint``
+    when ``cfg.remat``), then each tail layer alone."""
+    pairs = list(zip(params.layers, cfg.layer_types()))
+    head, n = cfg.first_k_dense, len(cfg.pattern)
+    segs = [([pr], False) for pr in pairs[:head]]
+    for g in range(cfg.n_groups):
+        segs.append((pairs[head + g * n: head + (g + 1) * n], True))
+    segs += [([pr], False) for pr in pairs[head + cfg.n_groups * n:]]
+    return segs
+
+
 def _backbone(params: Transformer, cfg: ModelConfig, x, positions,
               collect_states: bool = False):
-    """Run all decoder layers and the final norm. Returns (x, per-layer
-    states or None)."""
+    """Run all decoder layers and the final norm. Returns (x, the summed
+    aux loss, per-layer states or None)."""
     states = []
-    for p, lt in zip(params.layers, cfg.layer_types()):
-        x, st = _layer_forward(p, cfg, lt, x, positions)
-        if collect_states:
-            states.append(st)
+
+    def run(span, x, aux):
+        for p, lt in span:
+            x, a, st = _layer_forward(p, cfg, lt, x, positions)
+            aux = aux + a
+            if collect_states:
+                states.append(st)
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for span, grouped in _segments(params, cfg):
+        if grouped and _remat(cfg) and not collect_states:
+            x, aux = checkpoint(run, span, x, aux, use_reentrant=False)
+        else:
+            x, aux = run(span, x, aux)
     x = rms_norm(x, params.final_norm)
-    return x, (states if collect_states else None)
+    return x, aux, (states if collect_states else None)
 
 
-def train_forward(params, cfg: ModelConfig, batch: dict):
-    """The causal-LM loss of the reference; training is ROADMAP Queue A's
-    next item."""
-    raise NotImplementedError(
-        f"train_forward and its chunked loss are not ported yet ({LATER})")
+def train_forward(params: Transformer, cfg: ModelConfig, batch: dict):
+    """batch: ``tokens`` (B, S) [, ``prefix`` (B, P, D)], ``targets`` (B,
+    S), ``mask`` (B, S). Returns (loss, {"nll", "aux"}): the masked mean
+    NLL over the token positions (a vision prefix is sliced off first),
+    plus ``0.01 * aux / n_layers`` for an MoE config."""
+    check_supported(cfg)
+    dev = params.device
+    x, offset = _with_prefix(params, cfg, batch)
+    positions = torch.arange(x.shape[1], dtype=torch.float32, device=dev)
+    x, aux, _ = _backbone(params, cfg, x, positions)
+    x = x[:, offset:]
+    targets = torch.as_tensor(batch["targets"], device=dev).long()
+    mask = torch.as_tensor(batch["mask"], device=dev).to(torch.float32)
+    nll_sum = _chunked_nll(params, cfg, x, targets, mask)
+    denom = torch.clamp(torch.sum(mask), min=1.0)
+    loss = nll_sum / denom
+    if cfg.moe is not None:
+        loss = loss + 0.01 * aux / max(cfg.n_layers, 1)
+    return loss, {"nll": nll_sum / denom, "aux": aux}
+
+
+def _nll_block(head, cfg: ModelConfig, xc, tc, mc):
+    """Summed NLL of one sequence block. xc (B, cs, D), tc/mc (B, cs);
+    ``head`` the (D, V) vocab head."""
+    logits = (xc @ head.to(cfg.dtype)).to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tc[..., None])[..., 0]
+    return torch.sum((logz - gold) * mc)
+
+
+def _chunked_nll(params: Transformer, cfg: ModelConfig, x, targets, mask):
+    """Total NLL over sequence chunks of ``cfg.loss_chunk``, each
+    rematerialised under ``cfg.remat`` so that one (B, chunk, V) logits
+    block is live in forward and backward; one block when ``s <= chunk``
+    or the chunk does not divide ``s``, as in the reference."""
+    s = x.shape[1]
+    cs = cfg.loss_chunk
+    if not cs or s <= cs or s % cs:
+        return _nll_block(params.head, cfg, x, targets, mask)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for start in range(0, s, cs):
+        args = (params.head, cfg, x[:, start:start + cs],
+                targets[:, start:start + cs], mask[:, start:start + cs])
+        total = total + (checkpoint(_nll_block, *args, use_reentrant=False)
+                         if _remat(cfg) else _nll_block(*args))
+    return total
 
 
 def _logits(params: Transformer, cfg: ModelConfig, x_last):
@@ -302,7 +410,7 @@ def prefill_forward(params: Transformer, cfg: ModelConfig, batch: dict,
     x, offset = _with_prefix(params, cfg, batch)
     positions = torch.arange(x.shape[1], dtype=torch.float32,
                              device=x.device)
-    x, states = _backbone(params, cfg, x, positions, collect_states=True)
+    x, _, states = _backbone(params, cfg, x, positions, collect_states=True)
     cache = [_cache_from_state(cfg, st, capacity, ring) for st in states]
     return _logits(params, cfg, x[:, -1]), cache
 
@@ -323,7 +431,8 @@ def decode_step(params: Transformer, cfg: ModelConfig, cache: list,
 
 def _decode_layer(p: Block, cfg: ModelConfig, lt: str, st: dict, x, pos,
                   ring: bool):
-    """One layer of decode; writes the layer's cache slot in place."""
+    """One layer of decode; writes the layer's cache slot in place. An MoE
+    block routes the B new tokens as one group (capacity couples them)."""
     if lt not in ATTN_TYPES:
         raise NotImplementedError(
             f"layer type {lt!r} is not ported yet ({LATER})")
@@ -333,8 +442,10 @@ def _decode_layer(p: Block, cfg: ModelConfig, lt: str, st: dict, x, pos,
                                       cfg.attn_dims(window), ring=ring,
                                       window=window)
     x = x + out
-    return x + mlp_mod.mlp_forward(p.ffn, rms_norm(x, p.ln2),
-                                   cfg.activation)
+    h = rms_norm(x, p.ln2)
+    if p.moe is not None:
+        return x + moe_mod.moe_forward(p.moe, h, cfg.moe, cfg.activation)[0]
+    return x + mlp_mod.mlp_forward(p.ffn, h, cfg.activation)
 
 
 def init_cache(cfg: ModelConfig, b: int, capacity: int,

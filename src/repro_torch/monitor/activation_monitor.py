@@ -57,7 +57,7 @@ def extract_features(params: Transformer, cfg: ModelConfig, batch: dict,
     x, offset = _with_prefix(params, cfg, batch)
     positions = torch.arange(x.shape[1], dtype=torch.float32,
                              device=x.device)
-    h, _ = _backbone(params, cfg, x, positions)
+    h, _, _ = _backbone(params, cfg, x, positions)
     pooled = torch.mean(h[:, offset:].to(torch.float32), dim=1)
     return pooled @ proj
 

@@ -1,7 +1,7 @@
 """The port's architecture registry (``repro_torch.configs``) and its copy of
 ``repro/data/tokens.py`` against the JAX package's: the five
-dense-attention configs field for field, parameter counts, and the token
-streams array for array."""
+dense-attention and two MoE configs field for field, parameter counts,
+and the token streams array for array."""
 import dataclasses
 
 import jax
@@ -21,12 +21,14 @@ from repro_torch.configs import (INPUT_SHAPES, get_citation, get_config,
 from repro_torch.data import tokens
 from repro_torch.models import count_params, init_params, transformer
 
-PORTED = ["deepseek-67b", "gemma-7b", "internlm2-1.8b", "internvl2-26b",
-          "yi-6b"]
+PORTED = ["deepseek-67b", "deepseek-moe-16b", "gemma-7b", "internlm2-1.8b",
+          "internvl2-26b", "mixtral-8x7b", "yi-6b"]
 DTYPES = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
 
 
-def test_list_archs_is_the_dense_attention_five():
+def test_list_archs_is_the_seven():
+    """The five dense-attention decoders and the two MoE ones; the JAX
+    package's other three wait for ROADMAP Queue A."""
     assert list_archs() == PORTED
 
 
@@ -88,3 +90,25 @@ def test_batches():
     for g, w in zip(got, want):
         for a, b in zip(g, w):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("arch,want", [("deepseek-moe-16b", 16_375_728_128),
+                                       ("mixtral-8x7b", 46_702_792_704)])
+def test_count_params_moe_full(arch, want, monkeypatch):
+    """The MoE configs' full counts, without allocating: the reference's
+    from ``jax.eval_shape``, the port's from ``init_params`` with every
+    draw made on the meta device (shapes only)."""
+    jc = jax_config(arch, "full")
+    shapes = jax.eval_shape(lambda: jax_init_params(jax.random.key(0), jc))
+    assert sum(int(np.prod(s.shape)) for s in jax.tree.leaves(shapes)) \
+        == want
+
+    def meta(gen, shape, *_):
+        return torch.empty(shape, device="meta")
+
+    from repro_torch.models import attention, mlp, moe
+    for mod in (attention, mlp, moe):
+        monkeypatch.setattr(mod, "dense_init", meta)
+    monkeypatch.setattr(transformer, "embed_init", meta)
+    assert count_params(init_params(0, get_config(arch, "full"),
+                                    device="cpu")) == want

@@ -638,3 +638,72 @@ class TestUplinkOnCard:
             for f in ("weights", "means", "covs"):
                 assert torch.equal(getattr(serial.global_gmm, f),
                                    getattr(pooled.global_gmm, f))
+
+
+@pytest.mark.cuda
+class TestTrainingOnCard:
+    """The substrate's training step and MoE routing on the card against
+    the same computation on the CPU, float32 with TF32 off: one
+    ``train_step`` at smoke size (loss and ``grad_norm`` 1e-4 relative;
+    the parameters 1e-4 relative where the step's gradient is at least
+    1e-2 of its tensor's largest, within ``2 * lr`` elsewhere: Adam turns
+    a rounding-level gradient into an ``lr``-sized move of either sign),
+    and ``moe_forward`` with forced router ties (rtol/atol 1e-5: ties go
+    to the lower expert index on both devices, so routing is equal)."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card: the step runs there")
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    @pytest.mark.parametrize("arch", ["internlm2-1.8b", "deepseek-moe-16b",
+                                      "mixtral-8x7b"])
+    def test_train_step_against_the_cpu(self, arch):
+        import dataclasses
+        from repro_torch.configs import get_config
+        from repro_torch.launch.steps import make_train_step
+        from repro_torch.models import init_params
+        from repro_torch.optim import AdamWConfig, init_opt_state
+        cfg = dataclasses.replace(get_config(arch, "smoke"),
+                                  dtype=torch.float32)
+        opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=3)
+        cpu = init_params(0, cfg, device="cpu", master=True)
+        card = init_params(0, cfg, device="cpu", master=True).cuda()
+        rng = np.random.default_rng(0)
+        toks = rng.integers(0, cfg.vocab_size, (2, 65))
+        batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:],
+                 "mask": np.ones((2, 64), np.float32)}
+        step = make_train_step(cfg, opt)
+        state = init_opt_state(cpu)
+        a = step(cpu, state, batch)
+        b = step(card, init_opt_state(card), {
+            k: torch.as_tensor(v, device="cuda") for k, v in batch.items()})
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(b[k], a[k], rtol=1e-4)
+        assert a["lr"] == b["lr"]
+        for (n, p), (_, q) in zip(cpu.named_parameters(),
+                                  card.named_parameters()):
+            p, q = p.detach(), q.detach().cpu()
+            g = state["m"][n].abs()         # (1 - beta1) * clipped grad
+            sharp = g >= 1e-2 * g.max()
+            np.testing.assert_allclose(q[sharp].numpy(), p[sharp].numpy(),
+                                       rtol=1e-4, atol=1e-7, err_msg=n)
+            assert float((q - p).abs().max()) <= 2 * a["lr"] + 1e-6, n
+
+    def test_moe_forced_ties_against_the_cpu(self):
+        from repro_torch.models import moe
+        dims = moe.MoEDims(n_experts=4, top_k=2, d_ff=128, n_shared=1,
+                           group_size=64, capacity_factor=0.5)
+        gen = torch.Generator().manual_seed(0)
+        block = moe.moe_init(gen, 256, dims)
+        with torch.no_grad():
+            block.router[:, 1] = block.router[:, 0]
+            block.router[:, 3] = block.router[:, 0]
+        x = torch.as_tensor(np.random.default_rng(1).normal(
+            0, 1, (2, 64, 256)), dtype=torch.float32)
+        want, want_aux = moe.moe_forward(block, x, dims)
+        got, aux = moe.moe_forward(block.cuda(), x.cuda(), dims)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5,
+                                   atol=1e-5)

@@ -107,6 +107,33 @@ def test_greedy_tokens_equal_the_jax_engine():
     assert len(got[2].tokens) == 3
 
 
+def test_greedy_tokens_moe_equal_the_jax_engine():
+    """deepseek-moe-16b's smoke config (a dense head layer, then MoE with a
+    shared expert) at its own capacity factor: the JAX engine's tokens.
+    A decode step routes the batch's tokens as one group, so peers share
+    capacity in both engines alike."""
+    jc = dataclasses.replace(jax_config("deepseek-moe-16b", "smoke"),
+                             dtype=jnp.float32)
+    tc = dataclasses.replace(get_config("deepseek-moe-16b", "smoke"),
+                             dtype=torch.float32)
+    params = jax_init_params(jax.random.key(0), jc)
+    model = model_params_from_jax(jax.tree.map(np.asarray, params), tc,
+                                  device="cpu")
+    rng = np.random.default_rng(6)
+    queue = make_queue(7, rng, max_new=6, cls=JaxRequest)
+    for r in queue:
+        logits, _ = jax_prefill(params, jc, {"tokens": jnp.asarray(
+            r.prompt[None])}, capacity=64)
+        top2 = np.sort(np.asarray(logits[0]))[-2:]
+        assert top2[1] - top2[0] > 1e-4
+    want = JaxServeEngine(jc, params, max_batch=3, max_context=64) \
+        .serve(queue)
+    got = ServeEngine(tc, model, max_batch=3, max_context=64,
+                      device="cpu").serve([Request(*r) for r in queue])
+    assert [(r.rid, r.tokens) for r in got] == \
+        [(r.rid, r.tokens) for r in want]
+
+
 def test_monitor_observes_once_a_batch():
     class Counting:
         def __init__(self):

@@ -37,6 +37,7 @@ from repro_torch.models import transformer as ttr
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16_LOGITS_ATOL = 5e-2
 ARCHS = ["internlm2-1.8b", "gemma-7b", "yi-6b", "internvl2-26b"]
+MOE_ARCHS = ["deepseek-moe-16b", "mixtral-8x7b"]
 
 
 def np32(a) -> np.ndarray:
@@ -231,11 +232,14 @@ def run_both(arch, dtype, steps=8, b=2, s=40, capacity=56):
     return logits, caches
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_prefill_and_decode_f32(arch):
     """internlm2 (GQA), gemma (embed_scale, GeGLU, MHA), yi (rope_theta
-    5e6), internvl2 (the vision prefix): prefill logits and cache, then 8
-    decode steps' logits and the cache they wrote."""
+    5e6), internvl2 (the vision prefix), deepseek-moe (a dense head layer,
+    then MoE with a shared expert) and mixtral (MoE over sliding-window
+    layers), at the configs' own capacity factor (both packages drop the
+    same choices): prefill logits and cache, then 8 decode steps' logits
+    and the cache they wrote."""
     logits, caches = run_both(arch, torch.float32)
     for tl, jl in logits:
         assert tl.dtype == torch.float32 and tl.shape == jl.shape
@@ -255,6 +259,38 @@ def test_prefill_and_decode_bf16():
     t0, j0 = caches[0][0][0], caches[0][1][0]
     assert t0["k"].dtype == torch.bfloat16
     close(t0["k"], j0["k"], rtol=0, atol=1e-2)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_prefill_and_decode_bf16(arch):
+    """The MoE configs in their own dtype (bf16) at the bound in the module
+    docstring."""
+    logits, caches = run_both(arch, torch.bfloat16)
+    for tl, jl in logits:
+        close(tl, jl, rtol=0, atol=BF16_LOGITS_ATOL)
+    t0, j0 = caches[0][0][0], caches[0][1][0]
+    close(t0["k"], j0["k"], rtol=0, atol=1e-2)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_decode_matches_prefill_drop_free(arch):
+    """The port alone: decode step i's logits against prefill's on the
+    prompt extended by the same tokens (f32, 1e-5). Capacity couples a
+    group's tokens, so the two agree only where no choice can drop: at
+    capacity factor ``n_experts`` (tests/test_archs.py's way)."""
+    _, tc = configs(arch)
+    tc = dataclasses.replace(tc, moe=tc.moe._replace(
+        capacity_factor=float(tc.moe.n_experts)))
+    model = ttr.init_params(0, tc, device="cpu")
+    rng = np.random.default_rng(10)
+    prompt = rng.integers(0, tc.vocab_size, (3, 20))
+    forced = rng.integers(0, tc.vocab_size, (3, 6))
+    _, cache = ttr.prefill_forward(model, tc, {"tokens": prompt}, 32)
+    for i in range(6):
+        got, cache = ttr.decode_step(model, tc, cache, forced[:, i], 20 + i)
+        want, _ = ttr.prefill_forward(model, tc, {"tokens": np.concatenate(
+            [prompt, forced[:, :i + 1]], 1)}, 32)
+        close(got, want)
 
 
 def test_prefill_capacity_below_length_and_ring():
@@ -300,12 +336,27 @@ def test_init_params_and_cache_layout():
     assert cache[0]["v"].dtype == cfg.dtype
 
 
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "deepseek-moe-16b"])
+def test_init_params_master(arch):
+    """``master=True``: the same draw as the serving model, every leaf
+    float32 and trainable; the serving model is its matrices cast to the
+    compute dtype."""
+    cfg = get_config(arch, "smoke")
+    serving = ttr.init_params(0, cfg, device="cpu")
+    master = ttr.init_params(0, cfg, device="cpu", master=True)
+    pairs = list(zip(serving.parameters(), master.parameters()))
+    assert len(pairs) == len(list(master.parameters()))
+    for s, m in pairs:
+        assert m.dtype == torch.float32 and m.requires_grad
+        assert not s.requires_grad
+        assert torch.equal(s, m.detach().to(s.dtype))
+
+
 # ----------------------------------------------------------------------
 # Out of the slice
 # ----------------------------------------------------------------------
 
 OUT_OF_SLICE = {
-    "moe": dict(moe=object()),
     "rglru": dict(pattern=("rglru", "rglru", "local_attn"), n_layers=3),
     "mlstm": dict(pattern=("mlstm", "slstm")),
     "slstm": dict(pattern=("slstm",)),
@@ -324,11 +375,10 @@ def test_out_of_slice_families_raise(family):
         ttr.init_cache(cfg, 1, 8, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "recurrentgemma-9b",
-                                  "xlstm-350m", "seamless-m4t-medium",
-                                  "deepseek-moe-16b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-350m",
+                                  "seamless-m4t-medium"])
 def test_jax_only_archs_do_not_convert(arch):
-    """The JAX package's other five architectures are refused by the
+    """The JAX package's other three architectures are refused by the
     converter, never half-loaded."""
     jc = jax_config(arch, "smoke")
     fields = {f.name: getattr(jc, f.name) for f in dataclasses.fields(jc)}
@@ -338,9 +388,3 @@ def test_jax_only_archs_do_not_convert(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
         model_params_from_jax(params, cfg, device="cpu")
 
-
-def test_train_forward_raises():
-    cfg = get_config("internlm2-1.8b", "smoke")
-    model = ttr.init_params(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        ttr.train_forward(model, cfg, {"tokens": np.zeros((1, 4), np.int32)})

@@ -125,7 +125,7 @@ def test_features_shape_and_vision_offset():
     assert f.shape == (4, 32) and bool(torch.all(torch.isfinite(f)))
     x, offset = transformer._with_prefix(model, cfg, batch)
     assert offset == cfg.n_prefix and x.shape[1] == cfg.n_prefix + 16
-    h, _ = transformer._backbone(model, cfg, x, torch.arange(
+    h, _, _ = transformer._backbone(model, cfg, x, torch.arange(
         x.shape[1], dtype=torch.float32))
     want = h[:, cfg.n_prefix:].float().mean(1) @ proj
     torch.testing.assert_close(f, want, rtol=0, atol=0)
