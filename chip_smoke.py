@@ -157,7 +157,30 @@ Phases (each failure makes the exit code non-zero):
      expert, the router and the shared experts given gradients, and
      mixtral-8x7b cut to 2 layers in f32: a 4,160-token prompt past its
      4,096 window, then 8 decode steps through the ring cache against the
-     full cache with the window mask.
+     full cache with the window mask;
+ 14. the RG-LRU, xLSTM and encoder-decoder families: (a)
+     recurrentgemma-9b whole (38 layers, 11,712,739,328 parameters, bf16
+     with ``log_lambda`` f32) behind ``ServeEngine`` on the JAX CLI's
+     stream with the monitor attached and on a stream past its 2,048-token
+     local window (8 requests of 2,100-2,600 tokens, 16 new, batch 4,
+     context 2,688), then the monitor at its width (scores within 2e-4 of
+     the plain version; OOD against ID reported, not gated); (b) the same
+     model in f32 (TF32 off) at full depth on a 2,100-token prompt:
+     decode against the full forward and ring decode (capacity 2,048)
+     against windowed decode, within 1e-3; (c) recurrentgemma-9b cut to
+     one pattern group (3 layers, full width) trained 10 steps of
+     ``batches(0, 256000, 2, 1024, 10)``, losses falling, every RG-LRU
+     leaf given a gradient; (d) xlstm-350m whole served on the CLI stream
+     with the monitor, trained 10 steps of ``batches(0, 50304, 8, 512,
+     10)`` (the chunked mLSTM) with one profiled step, and cut to two
+     layers in f32: one step on the card against the CPU within 1e-4 in
+     loss and grad norm; (e) seamless-m4t-medium whole trained 10 steps
+     through ``launch.train.train`` with its ``src_embeds``, f32 decode
+     with the cross-attention cache against the full forward within 1e-3,
+     and the monitor on batches with ``src_embeds``; (f) one RG-LRU (B =
+     1, S = 2,048), mLSTM and sLSTM (B = 8, S = 1,024) cell at full width,
+     forward and forward+backward under the profiler: device busy against
+     wall, device ops a call, the largest device items.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``. A kernel's ``launches`` there is phase
@@ -166,7 +189,8 @@ wrapper's launches: a warm-up and a capture at each install, since a replay
 does not call it), phase 9 (a)'s out-of-core run with its scoring over
 sources, phase 10's runs (``uplink_async``) and phase 11's
 (``mesh_continual_splitmerge``), phase 12's (``transformer_serving``) and
-phase 13's (``transformer_training_moe``), and ``serving_device_launches``
+phase 13's (``transformer_training_moe``) and phase 14's
+(``transformer_recurrent_encdec``), and ``serving_device_launches``
 the kernel's launches that the profiler saw on the device in phase 8's
 traced runs (one a micro-batch). Without CUDA, or without the repository
 beside it, the script exits non-zero and prints no result.
@@ -1858,13 +1882,14 @@ def same_bits(a, b) -> bool:
 
 
 def profiled_busy(fn):
-    """(device busy ms, wall ms, {kernel name: ms}) of one run of ``fn()``
+    """(device busy ms, wall ms, {kernel name: ms}, device ops) of one run
+    of ``fn()``
     under ``torch.profiler``, tracing the device only (recording every host
     op of a fit slows it many times over). Busy is the union of the device
     events' intervals (a copy on its own stream may overlap a kernel), wall
     the same run's, so the idle share 1 - busy / wall is read from one
-    window. A profiler that fails or records no device time fails the
-    phase."""
+    window; device ops counts the device events. A profiler that fails or
+    records no device time fails the phase."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1875,19 +1900,20 @@ def profiled_busy(fn):
         wall = (time.perf_counter() - t0) * 1e3
     by_name: dict = {}
     spans = []
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            tr = ev.time_range
-            by_name[ev.name] = by_name.get(ev.name, 0.0) \
-                + tr.elapsed_us() / 1e3
-            spans.append((tr.start, tr.end))
-    busy, reach = 0.0, float("-inf")
+    # the raw trace: building ``prof.events()``' tree in Python takes
+    # minutes for a training step of the sLSTM loop
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            by_name[ev.name()] = by_name.get(ev.name(), 0.0) \
+                + ev.duration_ns() / 1e6
+            spans.append((ev.start_ns(), ev.start_ns() + ev.duration_ns()))
+    busy, reach = 0, float("-inf")
     for start, end in sorted(spans):
         if end > reach:
             busy += end - max(start, reach)
             reach = end
     check(busy > 0, "the profiler recorded no device time")
-    return busy / 1e3, wall, by_name
+    return busy / 1e6, wall, by_name, len(spans)
 
 
 # The entries the out-of-core path launches: the E-step and the Lloyd sweeps
@@ -2105,10 +2131,10 @@ def ooc_constant_memory(dev, report):
     # profiled fit, beside the unprofiled wall above
     n = BIG_ROWS[1]
     src = SyntheticGMMSource(gmm, n, seed=n)
-    busy, wall, by_name = profiled_busy(
+    busy, wall, by_name, _ = profiled_busy(
         lambda: GMMEstimator(K, config=cfg).fit(src, seed=0))
-    gen, _, _ = profiled_busy(lambda: drain(src, BIG_CHUNK))
-    seed_busy, _, _ = profiled_busy(lambda: kmeans_plusplus_streaming(
+    gen, _, _, _ = profiled_busy(lambda: drain(src, BIG_CHUNK))
+    seed_busy, _, _, _ = profiled_busy(lambda: kmeans_plusplus_streaming(
         0, src, K, BIG_CHUNK, dev, n_init=4))
     ours = sum(ms for name, ms in by_name.items()
                if any(k in name for k in OUR_KERNELS))
@@ -2171,7 +2197,7 @@ def ooc_host_file(dev, report, workdir):
                 res = fit_gmm_cfg(0, src, K, em_cfg, init_gmm=gmm)
                 torch.cuda.synchronize()
                 t_em = time.perf_counter() - t0
-                busy, wall, _ = profiled_busy(
+                busy, wall, _, _ = profiled_busy(
                     lambda: score(gmm, src, config=cfg))
                 log(f"phase 9 (d): chunk {chunk}, depth {depth}: score pass "
                     f"{t_pass:.3f} s ({nbytes / t_pass / 1e9:.2f} GB/s host "
@@ -2610,7 +2636,7 @@ def uplink_async_buffered(dev, report):
         before = kernel_counts()["estep_stats"]
         res, wall = synced(run)
         launches = kernel_counts()["estep_stats"] - before
-        busy, pwall, _ = profiled_busy(run)
+        busy, pwall, _, _ = profiled_busy(run)
         ll, auc = quality(res.global_gmm, report, cfg)
         check(res.n_rounds == rounds and launches == rounds,
               f"(e) {name}: {res.n_rounds} combines, {launches} estep_stats "
@@ -3140,28 +3166,32 @@ def lm_gib(nbytes) -> str:
     return f"{nbytes / 2**30:.3f} GiB"
 
 
-def lm_consistency(dev, model, cfg, rng, what):
-    """Decode against prefill: a CONSIST_PROMPT-token prompt at B =
-    CONSIST_B, then CONSIST_STEPS decode steps fed fixed tokens; step i's
-    logits against ``prefill_forward``'s last-position logits on the
-    prompt extended by the same i + 1 tokens -> (max abs diff, greedy
+def lm_consistency(dev, model, cfg, rng, what, b=CONSIST_B,
+                   prompt_len=CONSIST_PROMPT, steps=CONSIST_STEPS,
+                   extra=None):
+    """Decode against prefill: a ``prompt_len``-token prompt at B = ``b``,
+    then ``steps`` decode steps fed fixed tokens; step i's logits against
+    ``prefill_forward``'s last-position logits on the prompt extended by
+    the same i + 1 tokens (``extra``, e.g. an encoder-decoder's
+    ``src_embeds``, in every prefill's batch) -> (max abs diff, greedy
     agreement)."""
     import torch
     from repro_torch.models import decode_step, prefill_forward
+    extra = extra or {}
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (
-        CONSIST_B, CONSIST_PROMPT)), device=dev)
+        b, prompt_len)), device=dev)
     forced = torch.as_tensor(rng.integers(0, cfg.vocab_size, (
-        CONSIST_B, CONSIST_STEPS)), device=dev)
-    _, cache = prefill_forward(model, cfg, {"tokens": prompt},
-                               capacity=CONSIST_PROMPT + CONSIST_STEPS)
+        b, steps)), device=dev)
+    _, cache = prefill_forward(model, cfg, {"tokens": prompt, **extra},
+                               capacity=prompt_len + steps)
     err, agree = 0.0, []
-    for i in range(CONSIST_STEPS):
+    for i in range(steps):
         got, cache = decode_step(model, cfg, cache, forced[:, i],
-                                 CONSIST_PROMPT + i)
+                                 prompt_len + i)
         want, _ = prefill_forward(
             model, cfg, {"tokens": torch.cat([prompt, forced[:, :i + 1]],
-                                             dim=1)},
-            capacity=CONSIST_PROMPT + i + 1)
+                                             dim=1), **extra},
+            capacity=prompt_len + i + 1)
         check(bool(torch.isfinite(got).all()), f"{what}: non-finite logits")
         err = max(err, float((got - want).abs().max()))
         agree.append(torch.argmax(got, -1) == torch.argmax(want, -1))
@@ -3197,13 +3227,14 @@ def lm_ring(dev, model, cfg, rng):
     return err
 
 
-def lm_stream(name, cfg, seed=0):
-    """LM_STREAMS[name] as serve requests: prompt lengths uniform in
-    lo..hi and tokens uniform below ``min(vocab, 100)`` ("cli", as the JAX
-    CLI draws them) or over the vocabulary, from default_rng(seed)."""
+def lm_stream(name, cfg, seed=0, spec=None):
+    """``spec`` (default LM_STREAMS[name]) as serve requests: prompt
+    lengths uniform in lo..hi and tokens uniform below ``min(vocab, 100)``
+    ("cli", as the JAX CLI draws them) or over the vocabulary, from
+    default_rng(seed)."""
     import numpy as np
     from repro_torch.launch.serve import Request
-    n, (lo, hi), max_new, _, _ = LM_STREAMS[name]
+    n, (lo, hi), max_new, _, _ = spec or LM_STREAMS[name]
     rng = np.random.default_rng(seed)
     top = min(cfg.vocab_size, 100) if name == "cli" else cfg.vocab_size
     return [Request(i, rng.integers(0, top, rng.integers(lo, hi + 1))
@@ -3252,15 +3283,17 @@ def batch_vs_solo(dev, cfg32, model32, name, stream):
     return err, len(batch)
 
 
-def serve_lm_stream(dev, cfg, model, name, monitor=None):
-    """Serve LM_STREAMS[name] through a bf16 ``ServeEngine`` -> (results,
-    stats line). Every request served with its budget; TTFT, latency,
-    decode ms a step, tokens/s and peak memory measured."""
+def serve_lm_stream(dev, cfg, model, name, monitor=None, spec=None):
+    """Serve ``spec`` (default LM_STREAMS[name]) through a bf16
+    ``ServeEngine`` -> (results, stats line). Every request served with
+    its budget; TTFT, latency, decode ms a step, tokens/s and peak memory
+    measured."""
     import numpy as np
     import torch
     from repro_torch.launch.serve import ServeEngine
-    n, _, max_new, max_batch, max_context = LM_STREAMS[name]
-    stream = lm_stream(name, cfg)
+    spec = spec or LM_STREAMS[name]
+    n, _, max_new, max_batch, max_context = spec
+    stream = lm_stream(name, cfg, spec=spec)
     eng = ServeEngine(cfg, model, max_batch=max_batch,
                       max_context=max_context, monitor=monitor,
                       device=dev.type)
@@ -3298,7 +3331,7 @@ def serve_lm_stream(dev, cfg, model, name, monitor=None):
              f"{lm_gib(before)} allocated before the stream")
     bare = ServeEngine(cfg, model, max_batch=max_batch,
                        max_context=max_context, device=dev.type)
-    busy, pwall, by_name = profiled_busy(
+    busy, pwall, by_name, _ = profiled_busy(
         lambda: bare.serve(stream[:max_batch]))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     stats += (f"; one batch under the profiler: device busy {busy:.2f} ms "
@@ -3309,16 +3342,23 @@ def serve_lm_stream(dev, cfg, model, name, monitor=None):
     return stream, stats
 
 
-def lm_monitor(dev, cfg, model):
+def lm_monitor(dev, cfg, model, tag, extra=None, seq_len=None):
     """The FedGenGMM monitor at full width: MON_CLIENTS clients observe
     MON_BATCHES batches of MON_ROWS x MON_LEN in-distribution tokens
     (``synthetic_stream`` at the model's vocabulary, one seed a client),
     one aggregation, then MON_SCORED in-distribution sequences (another
     seed) and MON_SCORED OOD ones (uniform over the vocabulary's upper
-    half) scored -> (ID scores, OOD scores, the features scored, walls)."""
+    half) scored, the scores held against the plain version of the
+    global GMM's log density (rtol/atol 2e-4) -> (the monitor, median ID
+    score, median OOD score, the scores' max abs err, walls).
+    ``extra(rows, seed)`` adds entries to each batch (an encoder-decoder's
+    ``src_embeds``); ``seq_len`` (default MON_LEN) shortens the sequences
+    (the kernels' row counts do not depend on it)."""
     import numpy as np
     import torch
     from repro_torch.data.tokens import synthetic_stream
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import pack_params
     from repro_torch.monitor import (FedGMMMonitor, MonitorConfig,
                                      extract_features)
     mcfg = MonitorConfig()
@@ -3326,14 +3366,19 @@ def lm_monitor(dev, cfg, model):
           == (MON_DIM, MON_K_LOCAL, MON_K_GLOBAL, MON_H),
           f"MonitorConfig() is {mcfg}, not phase 12's")
     mon = FedGMMMonitor(cfg, mcfg, device=dev.type)
-    per_client = MON_BATCHES * MON_ROWS * MON_LEN
+    seq_len = seq_len or MON_LEN
+    per_client = MON_BATCHES * MON_ROWS * seq_len
+
+    def batch(toks, seed):
+        return {"tokens": toks, **(extra(len(toks), seed) if extra else {})}
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for cid in range(MON_CLIENTS):
         toks = synthetic_stream(cid, cfg.vocab_size, per_client).reshape(
-            MON_BATCHES, MON_ROWS, MON_LEN)
+            MON_BATCHES, MON_ROWS, seq_len)
         for b in range(MON_BATCHES):
-            mon.observe(cid, model, {"tokens": toks[b]})
+            mon.observe(cid, model, batch(toks[b], cid * MON_BATCHES + b))
     torch.cuda.synchronize()
     t_feat = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -3345,18 +3390,24 @@ def lm_monitor(dev, cfg, model):
                   for t in (g.weights, g.means, g.covs)),
           "the global monitor GMM is not a finite K_global mixture")
     id_toks = synthetic_stream(MON_CLIENTS, cfg.vocab_size,
-                               MON_SCORED * MON_LEN).reshape(MON_SCORED,
-                                                             MON_LEN)
+                               MON_SCORED * seq_len).reshape(MON_SCORED,
+                                                             seq_len)
     ood_toks = np.random.default_rng(7).integers(
-        cfg.vocab_size // 2, cfg.vocab_size, (MON_SCORED, MON_LEN)
+        cfg.vocab_size // 2, cfg.vocab_size, (MON_SCORED, seq_len)
     ).astype(np.int32)
+    id_b, ood_b = batch(id_toks, 10_000), batch(ood_toks, 10_001)
     t0 = time.perf_counter()
-    id_s = mon.score(model, {"tokens": id_toks})
-    ood_s = mon.score(model, {"tokens": ood_toks})
+    id_s = mon.score(model, id_b)
+    ood_s = mon.score(model, ood_b)
     t_score = time.perf_counter() - t0
-    feats = torch.cat([extract_features(model, cfg, {"tokens": t}, mon.proj)
-                       for t in (id_toks, ood_toks)])
-    return mon, id_s, ood_s, feats, (t_feat, t_fit, t_score)
+    feats = torch.cat([extract_features(model, cfg, b, mon.proj)
+                       for b in (id_b, ood_b)])
+    plain = -ref.gmm_log_prob_packed(feats, *pack_params(
+        g.means, g.covs, torch.log(g.weights)))
+    err = close(torch.as_tensor(np.concatenate([id_s, ood_s])), plain.cpu(),
+                2e-4, 2e-4, f"{tag} monitor scores against the plain version")
+    return (mon, float(np.median(id_s)), float(np.median(ood_s)), err,
+            (t_feat, t_fit, t_score))
 
 
 def phase_transformer_serving(dev, report):
@@ -3374,8 +3425,6 @@ def phase_transformer_serving(dev, report):
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.ops import pack_params
     from repro_torch.models import count_params, init_params
     from repro_torch.monitor import FedGMMMonitor, MonitorConfig
 
@@ -3457,18 +3506,12 @@ def phase_transformer_serving(dev, report):
     torch.cuda.empty_cache()
 
     # (d) the monitor at full width
-    mon, id_s, ood_s, feats, walls = lm_monitor(dev, cfg, model)
+    mon, med_id, med_ood, err, walls = lm_monitor(dev, cfg, model, "(d)")
     torch.cuda.synchronize()
     launches = kernel_counts()
     for name in PATH_KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched on the "
               f"transformer serving path")
-    g = mon.global_gmm
-    plain = -ref.gmm_log_prob_packed(feats, *pack_params(
-        g.means, g.covs, torch.log(g.weights)))
-    err = close(torch.as_tensor(np.concatenate([id_s, ood_s])), plain.cpu(),
-                2e-4, 2e-4, "monitor scores against the plain version")
-    med_id, med_ood = float(np.median(id_s)), float(np.median(ood_s))
     log(f"phase 12 (d): monitor {MonitorConfig()}: {MON_CLIENTS} clients x "
         f"{MON_BATCHES} batches of {MON_ROWS} x {MON_LEN} tokens; feature "
         f"extraction {walls[0]:.3f} s, local fits + aggregate {walls[1]:.3f} "
@@ -3579,8 +3622,8 @@ def train_full_width(dev):
     peak = torch.cuda.max_memory_allocated()
     check(rows[-1]["loss"] < rows[0]["loss"], f"(a) the loss did not fall: "
           f"{[r['loss'] for r in rows]}")
-    busy, pwall, by_name = profiled_busy(lambda: step(model, state,
-                                                      data[-1]))
+    busy, pwall, by_name, _ = profiled_busy(lambda: step(model, state,
+                                                         data[-1]))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     med = float(np.median(walls[2:]))
     tokens = TRAIN_B * TRAIN_S
@@ -3711,8 +3754,6 @@ def serve_moe_whole(dev, report):
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.ops import pack_params
     from repro_torch.models import count_params, init_params
     from repro_torch.monitor import FedGMMMonitor, MonitorConfig
     cfg = get_config(MOE_ARCH, "full")
@@ -3745,18 +3786,13 @@ def serve_moe_whole(dev, report):
     n_cli, _, _, cli_batch, _ = LM_STREAMS["cli"]
     check(observed == [0] * -(-n_cli // cli_batch),
           f"the monitor observed {observed}, not once a batch as client 0")
-    mon, id_s, ood_s, feats, walls = lm_monitor(dev, cfg, model)
-    g = mon.global_gmm
-    plain = -ref.gmm_log_prob_packed(feats, *pack_params(
-        g.means, g.covs, torch.log(g.weights)))
-    err = close(torch.as_tensor(np.concatenate([id_s, ood_s])), plain.cpu(),
-                2e-4, 2e-4, "(d) monitor scores against the plain version")
+    mon, med_id, med_ood, err, walls = lm_monitor(dev, cfg, model, "(d)")
     log(f"phase 13 (d): the cli stream's monitor observed {len(observed)} "
         f"batches, once a batch; the monitor at {MOE_ARCH}'s width: "
         f"features {walls[0]:.3f} s, fits + round {walls[1]:.3f} s, scoring "
-        f"{walls[2]:.3f} s; median anomaly score ID "
-        f"{float(np.median(id_s)):.4f}, OOD {float(np.median(ood_s)):.4f}; "
-        f"scores against the plain version max abs err {err:.3e}")
+        f"{walls[2]:.3f} s; median anomaly score ID {med_id:.4f}, OOD "
+        f"{med_ood:.4f}; scores against the plain version max abs err "
+        f"{err:.3e}")
     del model, mon
     torch.cuda.empty_cache()
     cfg32 = drop_free(dataclasses.replace(cfg, n_layers=MOE_CONSIST_LAYERS,
@@ -3920,6 +3956,534 @@ def phase_training_moe(dev, report):
     log(f"phase 13: took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ----------------------------------------------------------------------
+# Phase 14: the RG-LRU, xLSTM and encoder-decoder families
+# ----------------------------------------------------------------------
+
+RG_ARCH, RG_PARAMS = "recurrentgemma-9b", 11_712_739_328
+# (a) the JAX serve CLI's stream, and one past the 2,048-token local window
+RG_STREAMS = {"cli": LM_STREAMS["cli"],
+              "long": (8, (2100, 2600), 16, 4, 2688)}
+# (b) f32, TF32 off, on a prompt past the window: decode against the full
+# forward, ring (capacity = local_window) against windowed decode
+RG_B, RG_PROMPT, RG_CONSIST_STEPS, RG_RING_STEPS = 2, 2100, 4, 8
+# (c) one pattern group (rglru, rglru, local_attn) at full width, trained
+RG_TRAIN_LAYERS, RG_TRAIN_PARAMS = 3, 2_851_174_400
+RG_TRAIN_B, RG_TRAIN_S = 2, 1024
+# (d) xlstm-350m whole: served, trained (S = 512 > chunk_q = 256: the
+# chunked mLSTM and its checkpoints); cut to two layers (one mLSTM, one
+# sLSTM) at full width, trained on the same batches and, in f32, the card
+# against the CPU
+XL_ARCH, XL_PARAMS = "xlstm-350m", 449_324_128
+XL_TRAIN_B, XL_TRAIN_S = 8, 512
+# the monitor's sequences for xlstm-350m: the sLSTM loop runs once a token
+MON_LEN_XLSTM = 32
+XL_CPU_LAYERS, XL_CPU_PARAMS, XL_CPU_B, XL_CPU_S = 2, 131_881_992, 2, 320
+XL_CPU_RTOL = 1e-4
+# (e) seamless-m4t-medium whole
+SM_ARCH, SM_PARAMS = "seamless-m4t-medium", 977_860_608
+SM_TRAIN_B, SM_TRAIN_S = 8, 512
+RECUR_TRAIN_STEPS, RECUR_LR = 10, 3e-4
+# (f) the recurrences alone at full width: (layer type, B, S)
+RECUR_SHAPES = (("rglru", 1, 2048), ("mlstm", 8, 1024), ("slstm", 8, 1024))
+
+
+def serve_and_monitor(dev, cfg, model, streams, tag, seq_len=None):
+    """Serve ``streams`` through bf16 ``ServeEngine``s, the FedGenGMM
+    monitor attached to the cli stream's (one ``observe`` a batch); then
+    phase 12's monitor at this model's width, its scores against the plain
+    version. OOD against ID is reported, not gated (random weights)."""
+    from repro_torch.monitor import FedGMMMonitor, MonitorConfig
+    mon = FedGMMMonitor(cfg, MonitorConfig(), device=dev.type)
+    observed = []
+    observe = mon.observe
+    mon.observe = lambda cid, p, b: (observed.append(cid), observe(cid, p, b))
+    for name, spec in streams.items():
+        _, stats = serve_lm_stream(dev, cfg, model, name,
+                                   monitor=mon if name == "cli" else None,
+                                   spec=spec)
+        log(f"phase 14 {tag}: {cfg.name} {name}: {stats}; {card_line()}")
+    n_cli, _, _, cli_batch, _ = streams["cli"]
+    check(observed == [0] * -(-n_cli // cli_batch),
+          f"{tag} the monitor observed {observed}, not once a batch as "
+          f"client 0")
+    _, med_id, med_ood, err, walls = lm_monitor(dev, cfg, model, tag,
+                                                seq_len=seq_len)
+    log(f"phase 14 {tag}: the cli stream's monitor observed {len(observed)} "
+        f"batches, once a batch; the monitor at {cfg.name}'s width "
+        f"({MON_CLIENTS} clients x {MON_BATCHES} batches of {MON_ROWS} x "
+        f"{seq_len or MON_LEN} tokens): "
+        f"features {walls[0]:.3f} s, fits + round {walls[1]:.3f} s, scoring "
+        f"{walls[2]:.3f} s; median anomaly score ID {med_id:.4f}, OOD "
+        f"{med_ood:.4f} (OOD above ID: {med_ood > med_id}; not gated); "
+        f"scores against the plain version max abs err {err:.3e} (rtol/atol "
+        f"2e-4); kernel launches in phase 14 so far {kernel_counts()}")
+
+
+def build_full(dev, cfg, expect, tag, **kw):
+    """``init_params(0, cfg)`` on the card, its parameter count held to
+    ``expect`` -> (model, GiB allocated by it, build seconds)."""
+    import torch
+    from repro_torch.models import count_params, init_params
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = init_params(0, cfg, device=dev.type, **kw)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n = count_params(model)
+    check(n == expect, f"{tag} {cfg.name}: {n:,} parameters, not {expect:,}")
+    return model, lm_gib(torch.cuda.memory_allocated() - base), t_build
+
+
+def run_train_steps(dev, cfg, model, batches, profile_last=False):
+    """``make_train_step`` over ``batches`` from fresh AdamW state at lr
+    RECUR_LR (warmup 1) -> (metrics a step, walls, peak bytes, the
+    optimizer state, (busy, wall, top items) of the last step run under
+    the profiler, or None; that step's wall is the profiler's)."""
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    state = init_opt_state(model)
+    step = make_train_step(cfg, AdamWConfig(lr=RECUR_LR, warmup_steps=1,
+                                            total_steps=len(batches)))
+    torch.cuda.reset_peak_memory_stats()
+    rows, walls, prof = [], [], None
+    for i, batch in enumerate(batches):
+        if profile_last and i == len(batches) - 1:
+            busy, pwall, by_name, _ = profiled_busy(
+                lambda: rows.append(step(model, state, batch)))
+            walls.append(pwall / 1e3)
+            prof = (busy, pwall, sorted(by_name.items(),
+                                        key=lambda kv: -kv[1])[:5])
+            continue
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows.append(step(model, state, batch))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return rows, walls, torch.cuda.max_memory_allocated(), state, prof
+
+
+def finite_and_falling(rows):
+    """(every loss and grad norm finite, the last loss below the first)."""
+    import numpy as np
+    losses = [r["loss"] for r in rows]
+    return (all(np.isfinite(losses))
+            and all(np.isfinite(r["grad_norm"]) for r in rows),
+            losses[-1] < losses[0])
+
+
+def every_leaf_moved(state, model, kinds, tag):
+    """Every leaf of the modules named ``kinds`` took a nonzero gradient
+    (read from Adam's first moment, the sum of the steps' clipped
+    gradients) -> how many leaves were checked."""
+    names = [n for n, _ in model.named_parameters()
+             if any(f".{k}." in n for k in kinds)]
+    check(names, f"{tag} no {kinds} leaves")
+    still = [n for n in names if float(state["m"][n].abs().max()) == 0]
+    check(not still, f"{tag} leaves took no gradient: {still[:5]}")
+    return len(names)
+
+
+def train_line(rows, walls, peak, tokens, first=2):
+    """Losses, grad norms, the median step wall from step ``first + 1``,
+    tokens/s and peak memory of a training run, as one line."""
+    import numpy as np
+    med = float(np.median(walls[first:]))
+    return (f"loss " + " ".join(f"{r['loss']:.4f}" for r in rows)
+            + "; grad_norm " + " ".join(f"{r['grad_norm']:.3f}"
+                                        for r in rows)
+            + f"; median step wall (steps {first + 1}-{len(walls)}) "
+            f"{med:.4f} s (first {walls[0]:.3f} s), {tokens / med:.1f} "
+            f"tokens/s; peak memory {lm_gib(peak)}")
+
+
+def recurrentgemma_served(dev):
+    """(a) recurrentgemma-9b whole in bf16 behind ``ServeEngine`` on the
+    JAX CLI's stream (the monitor attached) and a stream past the local
+    window, then the monitor at its width."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(RG_ARCH, "full")
+    model, mem, t_build = build_full(dev, cfg, RG_PARAMS, "(a)")
+    blk = model.layers[0].rglru
+    check(blk.w_r.dtype == torch.bfloat16
+          and blk.log_lambda.dtype == torch.float32,
+          "(a) the serving model's RG-LRU matrices are not bf16 or its "
+          "log_lambda not f32")
+    log(f"phase 14 (a): {RG_ARCH} full ({cfg.n_layers} layers "
+        f"{cfg.pattern} x {cfg.n_groups} + {cfg.n_tail}, d_model "
+        f"{cfg.d_model}, d_rnn {cfg.d_rnn}, heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} head_dim {cfg.hd}, local window "
+        f"{cfg.local_window}, vocab {cfg.vocab_size}) from seed 0: "
+        f"{RG_PARAMS:,} parameters, bf16 {mem} allocated, built in "
+        f"{t_build:.3f} s")
+    serve_and_monitor(dev, cfg, model, RG_STREAMS, "(a)")
+    del model
+    torch.cuda.empty_cache()
+
+
+def recurrentgemma_f32(dev):
+    """(b) recurrentgemma-9b in f32 at full width and depth (TF32 off) on a
+    RG_PROMPT-token prompt past the window: decode against the full
+    forward, and ring decode (capacity = local_window) against windowed
+    full-cache decode, each within LM_ATOL."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, prefill_forward
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    cfg = dataclasses.replace(get_config(RG_ARCH, "full"),
+                              dtype=torch.float32)
+    model, mem, t_build = build_full(dev, cfg, RG_PARAMS, "(b)")
+    rng = np.random.default_rng(14)
+    check(RG_PROMPT > cfg.local_window, "the prompt is inside the window")
+    t0 = time.perf_counter()
+    err, agree = lm_consistency(dev, model, cfg, rng, "(b) f32", b=RG_B,
+                                prompt_len=RG_PROMPT,
+                                steps=RG_CONSIST_STEPS)
+    t_consist = time.perf_counter() - t0
+    check(err <= LM_ATOL, f"(b) f32 decode against the full forward: max "
+          f"abs diff {err} beyond {LM_ATOL}")
+    w = cfg.local_window
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (RG_B, RG_PROMPT)), device=dev)
+    _, ring = prefill_forward(model, cfg, {"tokens": prompt}, capacity=w,
+                              ring=True)
+    lb, full = prefill_forward(model, cfg, {"tokens": prompt},
+                               capacity=RG_PROMPT + RG_RING_STEPS)
+    check(ring[2]["k"].shape[1] == w, "(b) the ring cache is not the "
+          "window wide")
+    tok = torch.argmax(lb, -1)
+    ring_err = 0.0
+    for i in range(RG_RING_STEPS):
+        a, ring = decode_step(model, cfg, ring, tok, RG_PROMPT + i,
+                              ring=True)
+        b, full = decode_step(model, cfg, full, tok, RG_PROMPT + i)
+        ring_err = max(ring_err, close(a, b, LM_RTOL, LM_ATOL,
+                                       f"(b) ring decode step {i} against "
+                                       f"the windowed full cache"))
+        tok = torch.argmax(b, -1)
+    log(f"phase 14 (b): {RG_ARCH} f32 at full depth ({mem} allocated, "
+        f"built in {t_build:.3f} s), TF32 off, B = {RG_B}, a {RG_PROMPT}-"
+        f"token prompt past the {w}-token window: {RG_CONSIST_STEPS} decode "
+        f"steps against the full forward max abs diff {err:.3e} (bound "
+        f"{LM_ATOL}), greedy agreement {agree:.4f} ({t_consist:.1f} s); "
+        f"ring decode at capacity {w} against windowed full-cache decode, "
+        f"{RG_RING_STEPS} steps: max abs diff {ring_err:.3e}")
+    del model, ring, full
+    torch.cuda.empty_cache()
+
+
+def recurrentgemma_trained(dev):
+    """(c) recurrentgemma-9b cut to one pattern group (3 layers) at full
+    width: RECUR_TRAIN_STEPS steps on ``batches(0, 256000, 2, 1024, 10)``
+    (the chunked loss), every RG-LRU leaf given a gradient."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(RG_ARCH, "full"),
+                              n_layers=RG_TRAIN_LAYERS)
+    model, mem, _ = build_full(dev, cfg, RG_TRAIN_PARAMS, "(c)",
+                               master=True)
+    data = train_batches(0, cfg, RG_TRAIN_B, RG_TRAIN_S, RECUR_TRAIN_STEPS,
+                         dev)
+    rows, walls, peak, state, _ = run_train_steps(dev, cfg, model, data)
+    finite, falling = finite_and_falling(rows)
+    check(finite and falling, f"(c) losses not finite and falling: "
+          f"{[r['loss'] for r in rows]}")
+    n = every_leaf_moved(state, model, ("rglru",), "(c)")
+    log(f"phase 14 (c): {RG_ARCH} cut to {RG_TRAIN_LAYERS} layers "
+        f"({cfg.pattern}, full width), {RG_TRAIN_PARAMS:,} f32 master "
+        f"parameters ({mem}), {RECUR_TRAIN_STEPS} steps of B = "
+        f"{RG_TRAIN_B}, S = {RG_TRAIN_S} (loss_chunk {cfg.loss_chunk}), lr "
+        f"{RECUR_LR}, bf16 compute, remat on: "
+        + train_line(rows, walls, peak, RG_TRAIN_B * RG_TRAIN_S)
+        + f"; all {n} RG-LRU leaves took gradients")
+    del model, state, data
+    torch.cuda.empty_cache()
+
+
+def xlstm_card_against_cpu(dev):
+    """(d) xlstm-350m cut to XL_CPU_LAYERS layers (one mLSTM, one sLSTM)
+    at full width in f32: one ``train_step`` from the same masters on the
+    CPU and on the card, loss and grad_norm within XL_CPU_RTOL."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import count_params, init_params
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    cfg = dataclasses.replace(get_config(XL_ARCH, "full"),
+                              n_layers=XL_CPU_LAYERS, dtype=torch.float32)
+    cpu = init_params(0, cfg, device="cpu", master=True)
+    check(count_params(cpu) == XL_CPU_PARAMS, f"(d) {XL_ARCH} at "
+          f"{XL_CPU_LAYERS} layers: not {XL_CPU_PARAMS:,} parameters")
+    card = copy.deepcopy(cpu).to(dev)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                            total_steps=1))
+    batch = train_batches(3, cfg, XL_CPU_B, XL_CPU_S, 1, "cpu")[0]
+    a = step(cpu, init_opt_state(cpu), batch)
+    b = step(card, init_opt_state(card),
+             {k: v.to(dev) for k, v in batch.items()})
+    rel = {k: abs(b[k] - a[k]) / abs(a[k]) for k in ("loss", "grad_norm")}
+    for k, r in rel.items():
+        check(r <= XL_CPU_RTOL, f"(d) {k}: card {b[k]} against cpu {a[k]}")
+    log(f"phase 14 (d): {XL_ARCH} cut to {cfg.layer_types()} at full width, "
+        f"f32, TF32 off, one step of B = {XL_CPU_B}, S = {XL_CPU_S} (the "
+        f"chunked mLSTM at chunk_q {cfg.chunk_q}) on the card and the CPU: "
+        f"loss {a['loss']:.6f}, relative difference {rel['loss']:.3e}; "
+        f"grad_norm {a['grad_norm']:.6f}, relative difference "
+        f"{rel['grad_norm']:.3e} (bound {XL_CPU_RTOL})")
+
+
+def xlstm_two_layers_trained(dev):
+    """(d) xlstm-350m cut to XL_CPU_LAYERS layers (one mLSTM, one sLSTM) at
+    full width, bf16 compute: RECUR_TRAIN_STEPS steps of ``batches(0,
+    50304, 8, 512, 10)``; the loss falls, as the reference's does at this
+    cut (the whole stack's does not, in either package)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(XL_ARCH, "full"),
+                              n_layers=XL_CPU_LAYERS)
+    model, mem, _ = build_full(dev, cfg, XL_CPU_PARAMS, "(d)", master=True)
+    data = train_batches(0, cfg, XL_TRAIN_B, XL_TRAIN_S, RECUR_TRAIN_STEPS,
+                         dev)
+    rows, walls, peak, state, _ = run_train_steps(dev, cfg, model, data)
+    log(f"phase 14 (d): {XL_ARCH} cut to {cfg.layer_types()} at full "
+        f"width, {XL_CPU_PARAMS:,} f32 master parameters ({mem}), "
+        f"{RECUR_TRAIN_STEPS} steps of B = {XL_TRAIN_B}, S = {XL_TRAIN_S}, "
+        f"bf16 compute: " + train_line(rows, walls, peak,
+                                       XL_TRAIN_B * XL_TRAIN_S))
+    finite, falling = finite_and_falling(rows)
+    check(finite and falling, f"(d) {XL_CPU_LAYERS} layers: the losses are "
+          f"not finite and falling: {rows}")
+    n = every_leaf_moved(state, model, ("mlstm", "slstm"), "(d)")
+    log(f"phase 14 (d): at {XL_CPU_LAYERS} layers the loss falls and all {n} "
+        f"mLSTM and sLSTM leaves took gradients")
+    del model, state, data
+    torch.cuda.empty_cache()
+
+
+def xlstm_whole(dev):
+    """(d) xlstm-350m whole: served on the CLI stream with the monitor,
+    the monitor at its width (MON_LEN_XLSTM-token sequences),
+    RECUR_TRAIN_STEPS steps of ``batches(0, 50304, 8, 512, 10)``, the last
+    profiled; then two layers trained, and on the card against the CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.optim import AdamWConfig
+    cfg = get_config(XL_ARCH, "full")
+    model, mem, t_build = build_full(dev, cfg, XL_PARAMS, "(d)")
+    sl = model.layers[1].slstm
+    check(sl.r.dtype == sl.b.dtype == model.layers[0].mlstm.b_if.dtype
+          == torch.float32 and sl.w_in.dtype == torch.bfloat16,
+          "(d) the serving model's f32 leaves are not f32")
+    log(f"phase 14 (d): {XL_ARCH} full ({cfg.n_layers} layers "
+        f"{cfg.pattern}, d_model {cfg.d_model}, {cfg.xlstm}, vocab "
+        f"{cfg.vocab_size}) from seed 0: {XL_PARAMS:,} parameters, bf16 "
+        f"with r, b and b_if f32: {mem}, built in {t_build:.3f} s")
+    serve_and_monitor(dev, cfg, model, {"cli": LM_STREAMS["cli"]}, "(d)",
+                      seq_len=MON_LEN_XLSTM)
+    del model
+    torch.cuda.empty_cache()
+    model, mem, _ = build_full(dev, cfg, XL_PARAMS, "(d)", master=True)
+    data = train_batches(0, cfg, XL_TRAIN_B, XL_TRAIN_S, RECUR_TRAIN_STEPS,
+                         dev)
+    rows, walls, peak, state, prof = run_train_steps(dev, cfg, model, data,
+                                                     profile_last=True)
+    finite, falling = finite_and_falling(rows)
+    busy, pwall, top = prof
+    # the last step ran under the profiler: the median leaves it out
+    log(f"phase 14 (d): {XL_ARCH} whole, {XL_PARAMS:,} f32 master "
+        f"parameters ({mem}), {RECUR_TRAIN_STEPS} steps of B = "
+        f"{XL_TRAIN_B}, S = {XL_TRAIN_S} (chunk_q {cfg.chunk_q}: the "
+        f"chunked mLSTM), bf16 compute, remat on, gradients clipped to "
+        f"{AdamWConfig().clip_norm}: "
+        + train_line(rows, walls[:-1], peak, XL_TRAIN_B * XL_TRAIN_S)
+        + f"; the last loss {'below' if falling else 'not below'} the first "
+        f"(not gated: the reference's 24-layer stack does not learn in 10 "
+        f"steps either, PERF.md section 6); the profiled step: "
+        f"{pwall / 1e3:.3f} s, device busy {busy:.2f} ms, idle share "
+        f"{1 - busy / pwall:.4f}; largest device items (ms) "
+        + ", ".join(f"{ms:.2f} {name.replace('void at::native::', '')[:70]}"
+                    for name, ms in top) + f"; {card_line()}")
+    check(finite, f"(d) a loss or grad norm is not finite: {rows}")
+    n = every_leaf_moved(state, model, ("mlstm", "slstm"), "(d)")
+    log(f"phase 14 (d): all {n} mLSTM and sLSTM leaves took gradients")
+    del model, state, data
+    torch.cuda.empty_cache()
+    xlstm_two_layers_trained(dev)
+    xlstm_card_against_cpu(dev)
+
+
+def seamless_frames(cfg, rows, seq_len, seed, dev):
+    """Frame embeddings (rows, seq_len // src_ratio, d_model) in the
+    trainer's draw (N(0, 0.02)) from default_rng(seed)."""
+    import numpy as np
+    import torch
+    return torch.as_tensor(np.random.default_rng(seed).normal(
+        0, 0.02, (rows, seq_len // cfg.src_ratio, cfg.d_model)),
+        dtype=torch.float32, device=dev).to(cfg.dtype)
+
+
+def seamless_whole(dev):
+    """(e) seamless-m4t-medium whole: RECUR_TRAIN_STEPS steps through
+    ``launch.train.train`` (its ``src_embeds`` draw); f32 prefill plus
+    decode with the cross-attention cache against the full forward; the
+    monitor observing batches with ``src_embeds``, its fits and scores."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    cfg = get_config(SM_ARCH, "full")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, losses = train(SM_ARCH, "full", steps=RECUR_TRAIN_STEPS,
+                          batch_size=SM_TRAIN_B, seq_len=SM_TRAIN_S,
+                          lr=RECUR_LR, log_every=RECUR_TRAIN_STEPS,
+                          device=dev.type)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n = sum(int(p.numel()) for p in model.parameters())
+    check(n == SM_PARAMS, f"(e) {SM_ARCH}: {n:,} parameters")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"(e) losses not finite and falling: {losses}")
+    tokens = SM_TRAIN_B * SM_TRAIN_S * RECUR_TRAIN_STEPS
+    log(f"phase 14 (e): {SM_ARCH} full ({cfg.n_enc_layers} encoder + "
+        f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}), {SM_PARAMS:,} f32 master parameters, "
+        f"{RECUR_TRAIN_STEPS} steps of ``train`` at B = {SM_TRAIN_B}, S = "
+        f"{SM_TRAIN_S} with {SM_TRAIN_S // cfg.src_ratio} frames of "
+        f"src_embeds: loss " + " ".join(f"{x:.4f}" for x in losses)
+        + f"; {wall:.3f} s in all (the build and the first step's warm-up "
+        f"included), {tokens / wall:.1f} decoder tokens/s; peak memory "
+        f"{lm_gib(peak)}")
+    del model
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model32, _, _ = build_full(dev, cfg32, SM_PARAMS, "(e)")
+    frames = {"src_embeds": seamless_frames(
+        cfg32, CONSIST_B, CONSIST_PROMPT, 15, dev)}
+    err, agree = lm_consistency(dev, model32, cfg32,
+                                np.random.default_rng(15), "(e) f32",
+                                extra=frames)
+    check(err <= LM_ATOL, f"(e) f32 decode with the cross-attention cache "
+          f"against the full forward: max abs diff {err} beyond {LM_ATOL}")
+    log(f"phase 14 (e): f32 (TF32 off), B = {CONSIST_B}, a "
+        f"{CONSIST_PROMPT}-token prompt over {CONSIST_PROMPT // cfg.src_ratio}"
+        f" frames, {CONSIST_STEPS} decode steps with the cross-attention "
+        f"cache against the full forward: max abs diff {err:.3e} (bound "
+        f"{LM_ATOL}), greedy agreement {agree:.4f}")
+    del model32
+    torch.cuda.empty_cache()
+
+    model, _, _ = build_full(dev, cfg, SM_PARAMS, "(e)")
+    mon, med_id, med_ood, err, walls = lm_monitor(
+        dev, cfg, model, "(e)", extra=lambda rows, seed: {
+            "src_embeds": seamless_frames(cfg, rows, MON_LEN, seed, dev)})
+    log(f"phase 14 (e): the monitor at {SM_ARCH}'s width, every batch with "
+        f"{MON_LEN // cfg.src_ratio} frames of src_embeds: features "
+        f"{walls[0]:.3f} s, fits + round {walls[1]:.3f} s, scoring "
+        f"{walls[2]:.3f} s; median anomaly score ID {med_id:.4f}, OOD "
+        f"{med_ood:.4f} (OOD above ID: {med_ood > med_id}; not gated); "
+        f"scores against the plain version max abs err {err:.3e}")
+    del model, mon
+    torch.cuda.empty_cache()
+
+
+def recurrences_alone(dev):
+    """(f) one RG-LRU, one mLSTM and one sLSTM cell at full width in bf16
+    (a serving model's leaves for the forward; every leaf bf16 with
+    gradients on for forward+backward, as a train step casts them), each
+    run once to warm up and once under the profiler: device busy against
+    wall, device ops a call, the largest device items."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import make_generator
+    from repro_torch.models import rglru, xlstm
+    rg, xl = get_config(RG_ARCH, "full"), get_config(XL_ARCH, "full")
+    gen = make_generator(0, dev)
+    cells = {
+        "rglru": (rglru.rglru_init(gen, rg.d_model,
+                                   rglru.RGLRUDims(rg.d_rnn), torch.bfloat16),
+                  rg.d_model, lambda m, x: rglru.rglru_forward(m, x)),
+        "mlstm": (xlstm.mlstm_init(gen, xl.d_model, xl.xlstm, torch.bfloat16),
+                  xl.d_model,
+                  lambda m, x: xlstm.mlstm_forward(m, x, xl.chunk_q)),
+        "slstm": (xlstm.slstm_init(gen, xl.d_model, xl.xlstm, torch.bfloat16),
+                  xl.d_model,
+                  lambda m, x: xlstm.slstm_forward(m, x, xl.xlstm.n_heads)),
+    }
+    for kind, b, s in RECUR_SHAPES:
+        module, d, fwd = cells[kind]
+        x = torch.randn((b, s, d), generator=gen, device=dev,
+                        dtype=torch.float32).to(torch.bfloat16)
+
+        def forward():
+            with torch.no_grad():
+                fwd(module, x)
+
+        trained = type(module)(*(p.detach().to(torch.bfloat16)
+                                 for p in module.parameters()))
+        trained.requires_grad_()
+
+        def backward():
+            out, _ = fwd(trained, x.requires_grad_())
+            out.float().sum().backward()
+
+        parts = []
+        for what, fn in (("forward", forward), ("forward+backward",
+                                                 backward)):
+            fn()
+            busy, wall, by_name, n_ops = profiled_busy(fn)
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+            parts.append(
+                f"{what}: device busy {busy:.2f} ms of {wall:.2f} ms wall "
+                f"(idle {1 - busy / wall:.4f}), {n_ops} device ops, "
+                f"largest (ms) " + ", ".join(
+                    f"{ms:.2f} {n.replace('void at::native::', '')[:60]}"
+                    for n, ms in top))
+        log(f"phase 14 (f): {kind} at full width, B = {b}, S = {s}, bf16: "
+            + "; ".join(parts) + f"; {card_line()}")
+        del module, trained, x
+    torch.cuda.empty_cache()
+
+
+def phase_recurrent_encdec(dev, report):
+    """Phase 14: (a) recurrentgemma-9b whole, served with the monitor; (b)
+    its f32 decode and ring checks past the window; (c) trained cut to one
+    pattern group; (d) xlstm-350m served, trained whole and held to the
+    CPU; (e) seamless-m4t-medium trained, checked in f32 and monitored;
+    (f) the recurrences alone, timed."""
+    t_phase = time.perf_counter()
+    reset_counts()
+    for part in (recurrentgemma_served, recurrentgemma_f32,
+                 recurrentgemma_trained, xlstm_whole, seamless_whole):
+        t0 = time.perf_counter()
+        part(dev)
+        log(f"phase 14: {part.__name__} took {time.perf_counter() - t0:.1f} "
+            f"s")
+    launches = kernel_counts()
+    for name in PATH_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched by the "
+              f"monitor in phase 14")
+    for entry in report["kernels"]:
+        entry["launches_by_path"]["transformer_recurrent_encdec"] = \
+            launches[entry["name"]]
+    log(f"phase 14: kernel launches {launches}")
+    recurrences_alone(dev)
+    log(f"phase 14: took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: the repository (src/repro_torch) is not beside "
@@ -3967,7 +4531,9 @@ def main() -> int:
               ("mesh runtime, continual and split-merge",
                phase_mesh_extensions),
               ("transformer serving", phase_transformer_serving),
-              ("transformer training and MoE", phase_training_moe)]
+              ("transformer training and MoE", phase_training_moe),
+              ("recurrent, xLSTM and encoder-decoder families",
+               phase_recurrent_encdec)]
     for name, fn in phases:
         if failures:
             log(f"skipping phase {name!r} after a failure")

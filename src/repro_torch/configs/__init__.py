@@ -1,5 +1,5 @@
 """Architecture configs of the port (one module per arch, each citing its
-source paper): the dense-attention and MoE decoders."""
+source paper): all ten architectures of the JAX package."""
 from repro_torch.configs.base import (INPUT_SHAPES, get_citation, get_config,
                                       list_archs, register)
 

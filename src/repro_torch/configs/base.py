@@ -3,11 +3,11 @@
 
 Every registered architecture has a full-size ``ModelConfig`` (the paper's
 dimensions) and a ``smoke`` reduced variant used by the CPU tests. The port
-registers the five dense-attention decoders and the two MoE ones
-(deepseek-moe-16b, mixtral-8x7b); the recurrent, xLSTM and
-encoder-decoder architectures register with their families (ROADMAP Queue
-A), and the dry-run's ``input_specs``/``decode_capacity``/``uses_ring``
-with the dry-run.
+registers all ten of the JAX package's: the five dense-attention decoders,
+the two MoE ones (deepseek-moe-16b, mixtral-8x7b), the hybrid recurrent
+recurrentgemma-9b, xlstm-350m and the encoder-decoder seamless-m4t-medium.
+The dry-run's ``input_specs``/``decode_capacity``/``uses_ring`` register
+with the dry-run (ROADMAP Queue A).
 
 Input shapes (assigned):
     train_4k      seq_len=4096    global_batch=256   (train_step)
@@ -53,4 +53,5 @@ def _ensure_loaded():
     if not _REGISTRY:
         from repro_torch.configs import (  # noqa: F401
             deepseek_67b, deepseek_moe_16b, gemma_7b, internlm2_1_8b,
-            internvl2_26b, mixtral_8x7b, yi_6b)
+            internvl2_26b, mixtral_8x7b, recurrentgemma_9b,
+            seamless_m4t_medium, xlstm_350m, yi_6b)

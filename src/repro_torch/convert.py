@@ -26,8 +26,11 @@ from repro_torch.fed.runtime import SplitClients
 from repro_torch.models.attention import Attention
 from repro_torch.models.mlp import MLP
 from repro_torch.models.moe import MoE
-from repro_torch.models.transformer import (Block, ModelConfig, Transformer,
-                                            check_supported)
+from repro_torch.models.rglru import RGLRU
+from repro_torch.models.transformer import (Block, Encoder, ModelConfig,
+                                            RGLRUBlock, Transformer,
+                                            XLSTMBlock, check_supported)
+from repro_torch.models.xlstm import MLSTM, SLSTM
 from repro_torch.monitor.activation_monitor import (FedGMMMonitor,
                                                     MonitorConfig)
 
@@ -67,25 +70,50 @@ def _mlp_from_jax(f: dict, mat) -> MLP:
                mat(f["w_gate"]) if "w_gate" in f else None)
 
 
-def _block_from_jax(p: dict, dtype, device) -> Block:
-    """One decoder layer of the JAX tree: matrices in ``dtype``, the norm
-    scales in float32; a dense ``ffn`` or an MoE ``moe`` block."""
-    if "attn" not in p or ("ffn" not in p and "moe" not in p):
-        raise NotImplementedError(
-            f"layer with keys {sorted(p)} is not ported yet (ROADMAP Queue A)")
-    a = p["attn"]
+def _attention_from_jax(a: dict, mat) -> Attention:
+    return Attention(mat(a["wq"]), mat(a["wk"]), mat(a["wv"]), mat(a["wo"]))
+
+
+def _block_from_jax(p: dict, dtype, device) -> nn.Module:
+    """One layer of the JAX tree, by its keys: an attention layer (with
+    ``lnx``/``xattn`` cross-attention, a dense ``ffn`` or an MoE ``moe``
+    block), an ``rglru`` layer or an ``mlstm``/``slstm`` one. Matrices in
+    ``dtype``; the norm scales and the recurrent leaves the reference
+    reads in float32 (``log_lambda``, ``b_if``, ``b``, ``r``) in
+    float32."""
     mat = functools.partial(_cast, dtype=dtype, device=device)
-    attention = Attention(mat(a["wq"]), mat(a["wk"]), mat(a["wv"]),
-                          mat(a["wo"]))
-    ln1 = _cast(p["ln1"], torch.float32, device)
-    ln2 = _cast(p["ln2"], torch.float32, device)
+    f32 = functools.partial(_cast, dtype=torch.float32, device=device)
+    if "rglru" in p:
+        g = p["rglru"]
+        cell = RGLRU(*(mat(g[k]) for k in ("w_gate_in", "w_rec_in", "conv_w",
+                                           "conv_b", "w_r", "w_i")),
+                     f32(g["log_lambda"]), mat(g["w_out"]))
+        return RGLRUBlock(f32(p["ln1"]), cell, f32(p["ln2"]),
+                          _mlp_from_jax(p["ffn"], mat))
+    if "mlstm" in p:
+        m = p["mlstm"]
+        return XLSTMBlock(f32(p["ln"]), mlstm=MLSTM(
+            *(mat(m[k]) for k in ("w_up", "wq", "wk", "wv", "w_if")),
+            f32(m["b_if"]), mat(m["w_down"])))
+    if "slstm" in p:
+        m = p["slstm"]
+        return XLSTMBlock(f32(p["ln"]), slstm=SLSTM(
+            mat(m["w_in"]), f32(m["r"]), f32(m["b"]), mat(m["w_up"]),
+            mat(m["w_down"])))
+    cross = {}
+    if "xattn" in p:
+        cross = dict(lnx=f32(p["lnx"]),
+                     xattn=_attention_from_jax(p["xattn"], mat))
+    attention = _attention_from_jax(p["attn"], mat)
+    ln1, ln2 = f32(p["ln1"]), f32(p["ln2"])
     if "ffn" in p:
-        return Block(ln1, attention, ln2, ffn=_mlp_from_jax(p["ffn"], mat))
+        return Block(ln1, attention, ln2, ffn=_mlp_from_jax(p["ffn"], mat),
+                     **cross)
     m = p["moe"]
     shared = _mlp_from_jax(m["shared"], mat) if "shared" in m else None
     return Block(ln1, attention, ln2, moe=MoE(
         mat(m["router"]), mat(m["w_gate"]), mat(m["w_up"]),
-        mat(m["w_down"]), shared))
+        mat(m["w_down"]), shared), **cross)
 
 
 def model_params_from_jax(params_np: dict, cfg: ModelConfig, device="cuda",
@@ -94,10 +122,12 @@ def model_params_from_jax(params_np: dict, cfg: ModelConfig, device="cuda",
     leaves (``jax.tree.map(np.asarray, params)``): ``head_layers``, the
     stacked ``blocks`` unstacked over their leading group axis (group g,
     pattern position p is layer ``first_k_dense + g * len(pattern) + p``),
-    then ``tail``. Matrices are cast once to ``dtype`` (default
-    ``cfg.dtype``, as the reference's serving steps cast them); norm
-    scales stay float32. ``dtype=torch.float32`` gives the float32 masters
-    a trainer updates (``.requires_grad_()`` turns their gradients on)."""
+    then ``tail``; an encoder-decoder's ``encoder`` (its stacked
+    ``blocks``, one a layer, and ``final_norm``). Matrices are cast once
+    to ``dtype`` (default ``cfg.dtype``, as the reference's serving steps
+    cast them); norm scales and the four float32 recurrent leaves stay
+    float32. ``dtype=torch.float32`` gives the float32 masters a trainer
+    updates (``.requires_grad_()`` turns their gradients on)."""
     check_supported(cfg)
     device = resolve_device(device)
     dtype = cfg.dtype if dtype is None else dtype
@@ -108,10 +138,17 @@ def model_params_from_jax(params_np: dict, cfg: ModelConfig, device="cuda",
             layers.append(_block_from_jax(
                 _index_tree(stacked, g), dtype, device))
     layers += [_block_from_jax(p, dtype, device) for p in params_np["tail"]]
+    encoder = None
+    if cfg.n_enc_layers:
+        enc = params_np["encoder"]
+        encoder = Encoder(
+            [_block_from_jax(_index_tree(enc["blocks"], i), dtype, device)
+             for i in range(cfg.n_enc_layers)],
+            _cast(enc["final_norm"], torch.float32, device))
     return Transformer(cfg, _cast(params_np["embed"], dtype, device),
                        _cast(params_np["head"], dtype, device),
                        _cast(params_np["final_norm"], torch.float32, device),
-                       layers)
+                       layers, encoder)
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -132,8 +169,9 @@ def model_params_to_jax(model: Transformer) -> dict:
     """The inverse of :func:`model_params_from_jax`: the JAX package's
     parameter tree with numpy leaves (``embed``, ``head``, ``final_norm``,
     ``head_layers``, ``blocks`` stacked over their group axis, one entry a
-    pattern position and ``None`` when there is no full group, and
-    ``tail``), so ``repro.checkpoint.load_checkpoint`` restores what
+    pattern position and ``None`` when there is no full group, ``tail``
+    and, for an encoder-decoder, ``encoder``), so
+    ``repro.checkpoint.load_checkpoint`` restores what
     ``repro_torch.checkpoint.save_checkpoint`` writes of it. Leaves are
     float32 numpy arrays (bf16 is widened exactly)."""
     cfg = model.cfg
@@ -142,10 +180,15 @@ def model_params_to_jax(model: Transformer) -> dict:
     body = layers[head:head + cfg.n_groups * n]
     blocks = [_stack([body[g * n + i] for g in range(cfg.n_groups)])
               if cfg.n_groups else None for i in range(n)]
-    return {"embed": _numpy(model.embed), "head": _numpy(model.head),
+    tree = {"embed": _numpy(model.embed), "head": _numpy(model.head),
             "final_norm": _numpy(model.final_norm),
             "head_layers": layers[:head], "blocks": blocks,
             "tail": layers[head + cfg.n_groups * n:]}
+    if model.encoder is not None:
+        tree["encoder"] = {
+            "blocks": _stack([_module_tree(b) for b in model.encoder.layers]),
+            "final_norm": _numpy(model.encoder.final_norm)}
+    return tree
 
 
 def _stack(trees: list):

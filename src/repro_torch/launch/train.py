@@ -4,8 +4,10 @@
 The masters are float32 on ``device`` from ``seed``; each step casts them
 to the config's compute dtype (``launch/steps.py``). Batches come from the
 synthetic token stream (``data/tokens.py``, the JAX package's stream from
-the same seed), a vision prefix from ``numpy.random.default_rng(seed)`` as
-the reference draws it. The checkpoint is written in the JAX package's
+the same seed), a vision prefix and an encoder-decoder's ``src_embeds``
+(frame embeddings at ``seq_len // src_ratio``) from
+``numpy.random.default_rng(seed)`` in the reference's order, so both
+trainers see the same data. The checkpoint is written in the JAX package's
 tree layout (``convert.model_params_to_jax``), so
 ``repro.checkpoint.load_checkpoint`` restores it into that package's
 ``init_params`` tree.
@@ -37,9 +39,7 @@ def train(arch: str, variant: str = "smoke", steps: int = 50,
           seed: int = 0, log_every: int = 10,
           checkpoint_path: str | None = None, device="cuda"):
     """Train ``arch`` for ``steps`` steps -> (the float32 master model, the
-    losses a step). An encoder-decoder config (whose batches would carry
-    ``src_embeds``) is refused by ``init_params`` until its family is
-    ported."""
+    losses a step)."""
     cfg = get_config(arch, variant)
     device = resolve_device(device)
     opt_cfg = AdamWConfig(lr=lr, warmup_steps=max(steps // 10, 1),
@@ -59,6 +59,11 @@ def train(arch: str, variant: str = "smoke", steps: int = 50,
         if cfg.frontend == "vision":
             batch["prefix"] = torch.as_tensor(
                 rng.normal(0, 0.02, (batch_size, cfg.n_prefix, cfg.d_model)),
+                dtype=torch.float32, device=device).to(cfg.dtype)
+        if cfg.n_enc_layers:
+            batch["src_embeds"] = torch.as_tensor(
+                rng.normal(0, 0.02, (batch_size, seq_len // cfg.src_ratio,
+                                     cfg.d_model)),
                 dtype=torch.float32, device=device).to(cfg.dtype)
         metrics = step_fn(model, opt_state, batch)
         losses.append(metrics["loss"])

@@ -1,4 +1,5 @@
-"""Model substrate of the port: the dense-attention transformer stack."""
+"""Model substrate of the port: the transformer stack of every registered
+architecture."""
 from repro_torch.models.common import count_params
 from repro_torch.models.transformer import (ModelConfig, Transformer,
                                             decode_step, init_cache,

@@ -8,10 +8,11 @@ with the one-shot FedGenGMM round. Out-of-distribution inputs then score
 low under the global GMM.
 
 Features are the final hidden states mean-pooled over every position after
-the vision prefix (left pads included, as in the reference), projected to a
-small fixed random basis shared by all clients. The local fits run the
-port's ``fit_gmm``, the server step its ``aggregate``, and scoring its
-``log_prob_chunked``: on the card, the ``kmeans_sweep_stats``,
+the vision prefix (left pads included, as in the reference; an
+encoder-decoder's decoder cross-attends to its batch's ``src_embeds``),
+projected to a small fixed random basis shared by all clients. The local
+fits run the port's ``fit_gmm``, the server step its ``aggregate``, and
+scoring its ``log_prob_chunked``: on the card, the ``kmeans_sweep_stats``,
 ``estep_stats`` and ``gmm_log_prob`` kernels.
 """
 from __future__ import annotations
@@ -27,7 +28,7 @@ from repro_torch.core.em import fit_gmm, log_prob_chunked
 from repro_torch.core.fedgen import aggregate
 from repro_torch.core.gmm import GMM
 from repro_torch.models.transformer import (ModelConfig, Transformer,
-                                            _backbone, _with_prefix)
+                                            _backbone, _encode, _with_prefix)
 
 FEATURE_DIM = 32
 
@@ -55,9 +56,10 @@ def extract_features(params: Transformer, cfg: ModelConfig, batch: dict,
                      proj: torch.Tensor) -> torch.Tensor:
     """Mean-pooled final hidden states -> (B, feature_dim) float32."""
     x, offset = _with_prefix(params, cfg, batch)
+    enc_x = _encode(params, cfg, batch)
     positions = torch.arange(x.shape[1], dtype=torch.float32,
                              device=x.device)
-    h, _, _ = _backbone(params, cfg, x, positions)
+    h, _, _ = _backbone(params, cfg, x, positions, enc_x)
     pooled = torch.mean(h[:, offset:].to(torch.float32), dim=1)
     return pooled @ proj
 

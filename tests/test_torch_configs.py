@@ -1,7 +1,6 @@
 """The port's architecture registry (``repro_torch.configs``) and its copy of
-``repro/data/tokens.py`` against the JAX package's: the five
-dense-attention and two MoE configs field for field, parameter counts,
-and the token streams array for array."""
+``repro/data/tokens.py`` against the JAX package's: all ten configs field
+for field, parameter counts, and the token streams array for array."""
 import dataclasses
 
 import jax
@@ -22,13 +21,14 @@ from repro_torch.data import tokens
 from repro_torch.models import count_params, init_params, transformer
 
 PORTED = ["deepseek-67b", "deepseek-moe-16b", "gemma-7b", "internlm2-1.8b",
-          "internvl2-26b", "mixtral-8x7b", "yi-6b"]
+          "internvl2-26b", "mixtral-8x7b", "recurrentgemma-9b",
+          "seamless-m4t-medium", "xlstm-350m", "yi-6b"]
 DTYPES = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
 
 
-def test_list_archs_is_the_seven():
-    """The five dense-attention decoders and the two MoE ones; the JAX
-    package's other three wait for ROADMAP Queue A."""
+def test_list_archs_is_the_ten():
+    """Every architecture the JAX package registers: five dense-attention
+    decoders, two MoE ones, RG-LRU, xLSTM and the encoder-decoder."""
     assert list_archs() == PORTED
 
 
@@ -41,6 +41,9 @@ def test_config_equals_jax_field_for_field(arch, variant):
     for name in jf:
         if name == "dtype":
             assert DTYPES[getattr(jc, name)] == tc.dtype
+        elif name == "xlstm" and jc.xlstm is not None:
+            assert tuple(tc.xlstm) == tuple(jc.xlstm)
+            assert type(tc.xlstm).__name__ == "XLSTMDims"
         else:
             assert getattr(tc, name) == getattr(jc, name), name
     assert tc.layer_types() == jc.layer_types()
@@ -92,23 +95,37 @@ def test_batches():
             np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("arch,want", [("deepseek-moe-16b", 16_375_728_128),
-                                       ("mixtral-8x7b", 46_702_792_704)])
-def test_count_params_moe_full(arch, want, monkeypatch):
-    """The MoE configs' full counts, without allocating: the reference's
-    from ``jax.eval_shape``, the port's from ``init_params`` with every
-    draw made on the meta device (shapes only)."""
+def full_counts(arch, monkeypatch):
+    """(the reference's full count from ``jax.eval_shape``, the port's from
+    ``init_params`` with every dense draw made on the meta device: shapes
+    only, nothing allocated)."""
     jc = jax_config(arch, "full")
     shapes = jax.eval_shape(lambda: jax_init_params(jax.random.key(0), jc))
-    assert sum(int(np.prod(s.shape)) for s in jax.tree.leaves(shapes)) \
-        == want
 
     def meta(gen, shape, *_):
         return torch.empty(shape, device="meta")
 
-    from repro_torch.models import attention, mlp, moe
-    for mod in (attention, mlp, moe):
+    from repro_torch.models import attention, mlp, moe, rglru, xlstm
+    for mod in (attention, mlp, moe, rglru, xlstm):
         monkeypatch.setattr(mod, "dense_init", meta)
     monkeypatch.setattr(transformer, "embed_init", meta)
-    assert count_params(init_params(0, get_config(arch, "full"),
-                                    device="cpu")) == want
+    return (sum(int(np.prod(s.shape)) for s in jax.tree.leaves(shapes)),
+            count_params(init_params(0, get_config(arch, "full"),
+                                     device="cpu")))
+
+
+@pytest.mark.parametrize("arch,want", [("deepseek-moe-16b", 16_375_728_128),
+                                       ("mixtral-8x7b", 46_702_792_704)])
+def test_count_params_moe_full(arch, want, monkeypatch):
+    """The MoE configs' full counts, without allocating."""
+    assert full_counts(arch, monkeypatch) == (want, want)
+
+
+@pytest.mark.parametrize("arch,want", [
+    ("recurrentgemma-9b", 11_712_739_328), ("xlstm-350m", 449_324_128),
+    ("seamless-m4t-medium", 977_860_608)])
+def test_count_params_full(arch, want, monkeypatch):
+    """The RG-LRU, xLSTM and encoder-decoder configs' full counts, without
+    allocating: recurrentgemma-9b is 21.8 GiB in bf16 (dense d_rnn x d_rnn
+    gates, untied embedding and head)."""
+    assert full_counts(arch, monkeypatch) == (want, want)

@@ -642,14 +642,15 @@ class TestUplinkOnCard:
 
 @pytest.mark.cuda
 class TestTrainingOnCard:
-    """The substrate's training step and MoE routing on the card against
-    the same computation on the CPU, float32 with TF32 off: one
-    ``train_step`` at smoke size (loss and ``grad_norm`` 1e-4 relative;
-    the parameters 1e-4 relative where the step's gradient is at least
-    1e-2 of its tensor's largest, within ``2 * lr`` elsewhere: Adam turns
-    a rounding-level gradient into an ``lr``-sized move of either sign),
-    and ``moe_forward`` with forced router ties (rtol/atol 1e-5: ties go
-    to the lower expert index on both devices, so routing is equal)."""
+    """The substrate's training step, the recurrent and cross-attention
+    layers and MoE routing on the card against the same computation on
+    the CPU, float32 with TF32 off: one ``train_step`` at smoke size
+    (loss and ``grad_norm`` 1e-4 relative; the parameters 1e-4 relative
+    where the step's gradient is at least 1e-2 of its tensor's largest,
+    within ``2 * lr`` elsewhere: Adam turns a rounding-level gradient
+    into an ``lr``-sized move of either sign), and ``moe_forward`` with
+    forced router ties (rtol/atol 1e-5: ties go to the lower expert
+    index on both devices, so routing is equal)."""
 
     @pytest.fixture(autouse=True)
     def _card(self):
@@ -658,7 +659,8 @@ class TestTrainingOnCard:
         torch.backends.cuda.matmul.allow_tf32 = False
 
     @pytest.mark.parametrize("arch", ["internlm2-1.8b", "deepseek-moe-16b",
-                                      "mixtral-8x7b"])
+                                      "mixtral-8x7b", "recurrentgemma-9b",
+                                      "xlstm-350m", "seamless-m4t-medium"])
     def test_train_step_against_the_cpu(self, arch):
         import dataclasses
         from repro_torch.configs import get_config
@@ -674,6 +676,9 @@ class TestTrainingOnCard:
         toks = rng.integers(0, cfg.vocab_size, (2, 65))
         batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:],
                  "mask": np.ones((2, 64), np.float32)}
+        if cfg.n_enc_layers:
+            batch["src_embeds"] = rng.normal(0, 0.02, (2, 16, cfg.d_model)
+                                             ).astype(np.float32)
         step = make_train_step(cfg, opt)
         state = init_opt_state(cpu)
         a = step(cpu, state, batch)
@@ -690,6 +695,42 @@ class TestTrainingOnCard:
             np.testing.assert_allclose(q[sharp].numpy(), p[sharp].numpy(),
                                        rtol=1e-4, atol=1e-7, err_msg=n)
             assert float((q - p).abs().max()) <= 2 * a["lr"] + 1e-6, n
+
+    @pytest.mark.parametrize("arch,layer", [("recurrentgemma-9b", 0),
+                                            ("xlstm-350m", 0),
+                                            ("xlstm-350m", 1),
+                                            ("seamless-m4t-medium", 0)])
+    def test_layer_against_the_cpu(self, arch, layer):
+        """One layer of each family ported last (RG-LRU with its scan,
+        mLSTM over three query chunks, sLSTM's time loop, a decoder layer
+        with cross-attention) in f32 on the card against the CPU at S = 80:
+        the output and the decode-cache seed within rtol/atol 1e-4."""
+        import dataclasses
+        from repro_torch.configs import get_config
+        from repro_torch.models import init_params, transformer
+        cfg = dataclasses.replace(get_config(arch, "smoke"),
+                                  dtype=torch.float32)
+        model = init_params(0, cfg, device="cpu")
+        lt = transformer.decoder_types(cfg)[layer]
+        rng = np.random.default_rng(layer)
+        x = torch.as_tensor(rng.normal(0, 1, (2, 80, cfg.d_model)),
+                            dtype=torch.float32)
+        pos = torch.arange(80, dtype=torch.float32)
+        enc = torch.as_tensor(rng.normal(0, 1, (2, 20, cfg.d_model)),
+                              dtype=torch.float32)
+        outs = []
+        for dev in ("cpu", "cuda"):
+            blk = model.layers[layer].to(dev)
+            kv = transformer._enc_kv(blk, enc.to(dev)) if lt == "xattn" \
+                else None
+            with torch.no_grad():
+                out, _, st = transformer._layer_forward(
+                    blk, cfg, lt, x.to(dev), pos.to(dev), kv)
+            outs.append((out.cpu(), {k: v.cpu() for k, v in st.items()}))
+        (a, sa), (b, sb) = outs
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
+        for k in sa:
+            torch.testing.assert_close(sb[k], sa[k], rtol=1e-4, atol=1e-4)
 
     def test_moe_forced_ties_against_the_cpu(self):
         from repro_torch.models import moe

@@ -134,6 +134,32 @@ def test_greedy_tokens_moe_equal_the_jax_engine():
         [(r.rid, r.tokens) for r in want]
 
 
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-350m"])
+def test_greedy_tokens_recurrent_equal_the_jax_engine(arch):
+    """The recurrent families (their decode states written in place) on
+    the same weights and a ragged queue: the JAX engine's tokens. Each
+    padded batch's top-2 first-logit gap is checked first."""
+    jc = dataclasses.replace(jax_config(arch, "smoke"), dtype=jnp.float32)
+    tc = dataclasses.replace(get_config(arch, "smoke"), dtype=torch.float32)
+    params = jax_init_params(jax.random.key(0), jc)
+    model = model_params_from_jax(jax.tree.map(np.asarray, params), tc,
+                                  device="cpu")
+    rng = np.random.default_rng(8)
+    queue = [JaxRequest(i, rng.integers(0, 100, n).astype(np.int32), 4)
+             for i, n in enumerate((9, 14, 5, 14))]
+    want = JaxServeEngine(jc, params, max_batch=2, max_context=32) \
+        .serve(queue)
+    eng = ServeEngine(tc, model, max_batch=2, max_context=32, device="cpu")
+    for i in (0, 2):
+        tokens, _ = eng._pad_batch(queue[i:i + 2])
+        logits, _ = eng._prefill(model, {"tokens": tokens})
+        top2 = torch.topk(logits, 2).values
+        assert float((top2[:, 0] - top2[:, 1]).min()) > 1e-4
+    got = eng.serve([Request(*r) for r in queue])
+    assert [(r.rid, r.tokens) for r in got] == \
+        [(r.rid, r.tokens) for r in want]
+
+
 def test_monitor_observes_once_a_batch():
     class Counting:
         def __init__(self):

@@ -293,6 +293,30 @@ def test_moe_decode_matches_prefill_drop_free(arch):
         close(got, want)
 
 
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-350m",
+                                  "seamless-m4t-medium"])
+def test_decode_matches_full_forward(arch):
+    """tests/test_archs.py's check on the families ported last: prefill S
+    = 40 tokens (past recurrentgemma's 32-token local window, above
+    xlstm's chunk_q 32; seamless with its frames), decode token S,
+    against the full forward's last logits over S + 1 tokens at the
+    reference's own bound, 2e-3 (xlstm's parallel-form and recurrent
+    stabilisers differ in both packages)."""
+    _, tc = configs(arch)
+    model = ttr.init_params(0, tc, device="cpu")
+    rng = np.random.default_rng(11)
+    full = {"tokens": rng.integers(0, tc.vocab_size, (2, 41))}
+    if tc.n_enc_layers:
+        full["src_embeds"] = rng.normal(0, 1, (2, 10, tc.d_model)
+                                        ).astype(np.float32)
+    prompt = dict(full, tokens=full["tokens"][:, :40])
+    with torch.no_grad():
+        _, cache = ttr.prefill_forward(model, tc, prompt, 41)
+        got, _ = ttr.decode_step(model, tc, cache, full["tokens"][:, 40], 40)
+        want, _ = ttr.prefill_forward(model, tc, full, 41)
+    close(got, want, rtol=2e-3, atol=2e-3)
+
+
 def test_prefill_capacity_below_length_and_ring():
     """A prefill longer than the cache keeps the last C positions, rolled
     for a ring so that position p sits at p % C, as in the reference;
@@ -353,38 +377,30 @@ def test_init_params_master(arch):
 
 
 # ----------------------------------------------------------------------
-# Out of the slice
+# Unknown layer types
 # ----------------------------------------------------------------------
 
-OUT_OF_SLICE = {
-    "rglru": dict(pattern=("rglru", "rglru", "local_attn"), n_layers=3),
-    "mlstm": dict(pattern=("mlstm", "slstm")),
-    "slstm": dict(pattern=("slstm",)),
-    "xattn": dict(n_enc_layers=2),
-    "audio": dict(frontend="audio"),
-}
-
-
-@pytest.mark.parametrize("family", sorted(OUT_OF_SLICE))
-def test_out_of_slice_families_raise(family):
-    cfg = dataclasses.replace(get_config("internlm2-1.8b", "smoke"),
-                              **OUT_OF_SLICE[family])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        ttr.init_params(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        ttr.init_cache(cfg, 1, 8, device="cpu")
-
-
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-350m",
-                                  "seamless-m4t-medium"])
-def test_jax_only_archs_do_not_convert(arch):
-    """The JAX package's other three architectures are refused by the
-    converter, never half-loaded."""
-    jc = jax_config(arch, "smoke")
-    fields = {f.name: getattr(jc, f.name) for f in dataclasses.fields(jc)}
-    fields["dtype"] = torch.float32
-    cfg = ttr.ModelConfig(**fields)
-    params = jax.tree.map(np.asarray, jtr.init_params(jax.random.key(0), jc))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        model_params_from_jax(params, cfg, device="cpu")
-
+@pytest.mark.parametrize("entry", ["init", "forward", "decode"])
+def test_unknown_layer_type_raises_value_error(entry):
+    """A layer type the JAX package rejects (``ValueError`` in its
+    ``_layer_init``, ``_decode_layer`` and ``_zero_state``) is refused by
+    the port's entry points alike."""
+    cfg = get_config("internlm2-1.8b", "smoke")
+    bad = dataclasses.replace(cfg, pattern=("attn", "bogus"))
+    model = ttr.init_params(0, cfg, device="cpu")
+    toks = np.zeros((1, 4), np.int32)
+    if entry == "init":
+        with pytest.raises(ValueError, match="bogus"):
+            jtr.init_params(jax.random.key(0), dataclasses.replace(
+                jax_config("internlm2-1.8b", "smoke"),
+                pattern=("attn", "bogus")))
+    with pytest.raises(ValueError, match="bogus"):
+        if entry == "init":
+            ttr.init_params(0, bad, device="cpu")
+        elif entry == "forward":
+            ttr.train_forward(model, bad, {"tokens": toks, "targets": toks,
+                                           "mask": np.ones((1, 4))})
+        else:
+            ttr.decode_step(model, bad, ttr.init_cache(cfg, 1, 8,
+                                                       device="cpu"),
+                            toks[:, 0], 0)

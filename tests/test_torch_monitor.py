@@ -1,5 +1,6 @@
 """The port's FedGenGMM activation monitor (``repro_torch.monitor``) against
-the JAX package's, at internlm2-1.8b's smoke config on the CPU.
+the JAX package's, at internlm2-1.8b's smoke config on the CPU (and at
+the recurrent families').
 
 Deterministic stages run on carried-across state: the JAX model's weights
 (``convert.model_params_from_jax``), the JAX monitor's projection and its
@@ -89,6 +90,34 @@ def test_score_matches_jax_under_the_same_global_gmm(carried):
         want = jmon.score(params, {"tokens": jnp.asarray(toks)})
         got = mon.score(model, {"tokens": toks})
         np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-350m"])
+def test_recurrent_features_and_scores_match_jax(arch):
+    """The recurrent families' pooled features (f32 1e-5) and scores
+    under the JAX monitor's global GMM (2e-4)."""
+    jc = dataclasses.replace(jax_config(arch, "smoke"), dtype=jnp.float32)
+    tc = dataclasses.replace(get_config(arch, "smoke"), dtype=torch.float32)
+    params = jax_init_params(jax.random.key(0), jc)
+    model = model_params_from_jax(jax.tree.map(np.asarray, params), tc,
+                                  device="cpu")
+    rng = np.random.default_rng(5)
+    jmon = JaxMonitor(jc, JaxMonitorConfig(**SMALL))
+    jmon.observe(0, params, {"tokens": jnp.asarray(traffic(rng, 12, 16))})
+    g = jmon.aggregate()
+    mon = monitor_from_jax(tc, MonitorConfig(**SMALL), np.asarray(jmon.proj),
+                           tuple(np.asarray(a) for a in
+                                 (g.weights, g.means, g.covs)), device="cpu")
+    toks = traffic(rng, 8, 16, ood=True)
+    with torch.no_grad():
+        got = extract_features(model, tc, {"tokens": toks}, mon.proj)
+        scores = mon.score(model, {"tokens": toks})
+    want = jax_extract(params, jc, {"tokens": jnp.asarray(toks)}, jmon.proj)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(
+        scores, jmon.score(params, {"tokens": jnp.asarray(toks)}),
+        rtol=2e-4, atol=2e-4)
 
 
 def test_monitor_end_to_end():

@@ -1,8 +1,9 @@
 """The port's training path (``train_forward``, ``launch/steps.py``,
 ``launch/train.py``) against the JAX package's on the same numpy batches
 and the same weights (the JAX ``init_params`` carried across by
-``convert.model_params_from_jax``), at the seven registered smoke configs
-on the CPU.
+``convert.model_params_from_jax``), at the registered smoke configs on
+the CPU (the loss and gradient checks of the RG-LRU, xLSTM and
+encoder-decoder configs run from their own test files).
 
 Tolerances:
 
@@ -43,6 +44,11 @@ from repro_torch.models import transformer as ttr
 from repro_torch.optim import AdamWConfig, init_opt_state
 
 ARCHS = list_archs()
+# the families ported last run ``check_train_forward`` and ``check_grads``
+# from their own files (tests/test_torch_rglru.py, test_torch_xlstm.py,
+# test_torch_encdec.py), so no one file carries the slowest cases
+LATE = ("recurrentgemma-9b", "seamless-m4t-medium", "xlstm-350m")
+EARLY = [a for a in ARCHS if a not in LATE]
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16_ATOL = 5e-2
 
@@ -85,6 +91,9 @@ def make_batch(cfg, rng, b, s):
     if cfg.frontend == "vision":
         batch["prefix"] = rng.normal(0, 0.02, (b, cfg.n_prefix, cfg.d_model)
                                      ).astype(np.float32)
+    if cfg.n_enc_layers:
+        batch["src_embeds"] = rng.normal(
+            0, 0.02, (b, s // cfg.src_ratio, cfg.d_model)).astype(np.float32)
     return batch
 
 
@@ -115,11 +124,9 @@ def as_jax_leaves(model, by_name):
 # train_forward
 # ----------------------------------------------------------------------
 
-@pytest.mark.parametrize("s", [64, 1024])
-@pytest.mark.parametrize("arch", ARCHS)
-def test_train_forward_matches_jax(arch, s):
-    """Loss, nll and aux of the seven smoke configs: S = 64 below
-    ``loss_chunk`` (512, one block) and S = 1024, two chunks."""
+def check_train_forward(arch, s):
+    """Loss, nll and aux of ``arch``'s smoke config against the
+    reference's at S = ``s``."""
     jc, tc, params, model = masters(arch)
     batch = make_batch(jc, np.random.default_rng(0), 1 if s > 64 else 2, s)
     jl, jm = jax.jit(lambda p, b: jtr.train_forward(p, jc, b))(
@@ -132,6 +139,14 @@ def test_train_forward_matches_jax(arch, s):
     assert (float(tm["aux"]) > 0) == (tc.moe is not None)
 
 
+@pytest.mark.parametrize("s", [64, 1024])
+@pytest.mark.parametrize("arch", EARLY)
+def test_train_forward_matches_jax(arch, s):
+    """Loss, nll and aux of the dense and MoE smoke configs: S = 64 below
+    ``loss_chunk`` (512, one block) and S = 1024, two chunks."""
+    check_train_forward(arch, s)
+
+
 def test_loss_chunk_that_does_not_divide_is_one_block():
     """S = 600 with ``loss_chunk`` 512: the reference's single shot."""
     jc, tc, params, model = masters("internlm2-1.8b")
@@ -142,10 +157,9 @@ def test_loss_chunk_that_does_not_divide_is_one_block():
     np.testing.assert_allclose(float(tl), float(jl), **F32)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_grads_match_jax(arch):
+def check_grads(arch):
     """``torch.autograd`` through the chunked loss (``loss_chunk`` 32, S =
-    96: three chunks) and chunked attention, against
+    96: three chunks) and ``arch``'s layers, against
     ``jax.value_and_grad``, every leaf."""
     jc, tc, params, model = masters(arch, loss_chunk=32)
     batch = make_batch(jc, np.random.default_rng(2), 2, 96)
@@ -161,6 +175,13 @@ def test_grads_match_jax(arch):
     assert sorted(got) == sorted(want)
     for key in want:
         close_rel(got[key], want[key])
+
+
+@pytest.mark.parametrize("arch", EARLY)
+def test_grads_match_jax(arch):
+    """Gradients of the dense and MoE smoke configs (chunked attention,
+    routing) against the reference's."""
+    check_grads(arch)
 
 
 # ----------------------------------------------------------------------
