@@ -180,7 +180,22 @@ Phases (each failure makes the exit code non-zero):
      and the monitor on batches with ``src_embeds``; (f) one RG-LRU (B =
      1, S = 2,048), mLSTM and sLSTM (B = 8, S = 1,024) cell at full width,
      forward and forward+backward under the profiler: device busy against
-     wall, device ops a call, the largest device items.
+     wall, device ops a call, the largest device items;
+ 15. the sharding context, the production mesh and the dry-run: (a)
+     internlm2-1.8b at full width and depth on a (data=1, model=1) NCCL
+     mesh from ``launch.mesh.make_host_mesh``, its parameters laid out by
+     ``param_specs`` through ``to_shardings`` as ``DTensor``s with the
+     ``sharding_ctx`` axes set: phase 12's CLI batch prefilled and 8
+     decode steps, and one train step on phase 13's first batch, against
+     the plain path on the same weights (the same bits, or the
+     substrate's bounds), both timed; (b) ``python -m
+     repro_torch.launch.dryrun`` on 13 cells (internlm2-1.8b's four shapes
+     on both meshes, deepseek-moe-16b train_4k, mixtral-8x7b long_500k,
+     recurrentgemma-9b decode_32k, seamless-m4t-medium prefill_32k,
+     xlstm-350m train_4k) in 7 subprocesses over fake groups of 256 and
+     512 ranks, every cell exiting 0 with its argument bytes the specs'
+     sum; (c) the dry-run's live-bytes tracker over phase 13's train step
+     at world size 1, its peak within 25% of the card's.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``. A kernel's ``launches`` there is phase
@@ -190,7 +205,8 @@ does not call it), phase 9 (a)'s out-of-core run with its scoring over
 sources, phase 10's runs (``uplink_async``) and phase 11's
 (``mesh_continual_splitmerge``), phase 12's (``transformer_serving``) and
 phase 13's (``transformer_training_moe``) and phase 14's
-(``transformer_recurrent_encdec``), and ``serving_device_launches``
+(``transformer_recurrent_encdec``; phase 15 launches none of the five),
+and ``serving_device_launches``
 the kernel's launches that the profiler saw on the device in phase 8's
 traced runs (one a micro-batch). Without CUDA, or without the repository
 beside it, the script exits non-zero and prints no result.
@@ -199,6 +215,7 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1525,41 +1542,55 @@ def check_steps(steps, what):
     return len(steady), installs
 
 
-# The kernel of ``torch.cuda._sleep``: the marker that closes a profiled
-# window. It tells a trace cut short at its end apart from a kernel that
-# never launched (ROADMAP Queue C, R7)
+# The kernel of ``torch.cuda._sleep``: the markers that open and close a
+# profiled window. They tell a trace cut short at either end apart from a
+# kernel that never launched (ROADMAP Queue C, R7)
 PROFILER_MARKER = "spin_kernel"
+# Markers that open a profiled window, a millisecond apart. A trace drops a
+# prefix of its window's device events: the first one as a rule, at times a
+# few steps' worth (phase 8's serving run once counted 20, once 7, of its 23
+# steps' events, every kind short alike; ROADMAP Queue C, R7). The markers
+# take that prefix, and one of them must survive it
+PROFILER_OPENING = 32
 
 
 def profiled(fn):
     """Run ``fn`` under ``torch.profiler`` -> (its result, {device event
-    name: (count, us)}), the marker left out. The window opens on a drained
-    device; after ``fn`` the device is drained, a marker kernel
-    (``torch.cuda._sleep``) runs and is drained in turn, and only then does
-    the window close. A profiler that fails, sees no device event or lost
-    the marker fails the phase: the serving path's device launches are
-    read here, and a lost marker says the trace, not the path, fell
-    short."""
+    name: (count, us)}), the markers left out. The window opens on a
+    drained device and ``PROFILER_OPENING`` markers (``torch.cuda._sleep``),
+    each drained; then ``fn`` runs and the device is drained; a closing
+    marker runs and is drained in turn, and only then does the window
+    close. A profiler that fails, sees no device event, or whose trace
+    does not begin with an opening marker and end with the closing one
+    fails the phase: the serving path's device launches are read here, and
+    a lost marker says the trace, not the path, fell short."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILER_OPENING):
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(1e-3)
         out = fn()
         torch.cuda.synchronize()
         torch.cuda._sleep(1000)
         torch.cuda.synchronize()
+    events = sorted((ev.time_range.start, ev.name, ev.time_range.elapsed_us())
+                    for ev in prof.events()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA)
+    check(events, "the profiler saw no device events")
+    check(PROFILER_MARKER in events[0][1], "the profiler's trace lost every "
+          "marker that opens its window")
+    check(PROFILER_MARKER in events[-1][1], "the profiler's trace lost the "
+          "marker that closes its window")
     by_name: dict = {}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        cnt, us = by_name.get(ev.name, (0, 0.0))
-        by_name[ev.name] = (cnt + 1, us + ev.time_range.elapsed_us())
-    check(by_name, "the profiler saw no device events")
-    check(any(PROFILER_MARKER in name for name in by_name),
-          "the profiler's trace lost the marker that closes its window")
-    return out, {name: v for name, v in by_name.items()
-                 if PROFILER_MARKER not in name}
+    for _, name, us in events:
+        if PROFILER_MARKER not in name:
+            cnt, total = by_name.get(name, (0, 0.0))
+            by_name[name] = (cnt + 1, total + us)
+    return out, by_name
 
 
 def device_launches(by_name) -> int:
@@ -4484,6 +4515,451 @@ def phase_recurrent_encdec(dev, report):
     log(f"phase 14: took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ----------------------------------------------------------------------
+# Phase 15: the sharding context, the production mesh and the dry-run
+# ----------------------------------------------------------------------
+
+DECODE_STEPS = 8
+# the dry-run cells run in (b), one CLI process a group, all started
+# together: (arch, shapes or None for all four, --mesh)
+DRY_GROUPS = (("internlm2-1.8b", None, "single"),
+              ("internlm2-1.8b", None, "multi"),
+              ("deepseek-moe-16b", ("train_4k",), "single"),
+              ("mixtral-8x7b", ("long_500k",), "single"),
+              ("recurrentgemma-9b", ("decode_32k",), "single"),
+              ("seamless-m4t-medium", ("prefill_32k",), "single"),
+              ("xlstm-350m", ("train_4k",), "single"))
+DRY_TIMEOUT = 600
+AXIS_SIZE = {"pod": 2, "data": 16, "model": 16}
+
+
+def host_mesh_2d(dev, workdir):
+    """A process group of one rank over a ``file://`` store (NCCL on the
+    card, gloo where the phase is rehearsed on the CPU) and its (data=1,
+    model=1) mesh from ``repro_torch.launch.mesh.make_host_mesh``."""
+    import os
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    if dev.type == "cuda":
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"file://{workdir}/store", rank=0,
+                            world_size=1)
+    return make_host_mesh(1, device_type=dev.type)
+
+
+def full(t):
+    """A ``DTensor``'s whole value (a plain tensor as it is)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def bits_or_bound(what, got, want, atol):
+    """True where ``got`` is ``want`` bit for bit; else it must be within
+    ``atol`` (the substrate's bound for the dtype), and the gap is
+    printed."""
+    import torch
+    got, want = full(got).float(), want.float()
+    if torch.equal(got, want):
+        return True
+    gap = float((got - want).abs().max())
+    check(gap <= atol, f"(a) {what}: the DTensor path is {gap:.3e} from the "
+          f"plain one, above {atol}")
+    log(f"phase 15 (a): {what}: not the same bits, max gap {gap:.3e} "
+        f"(bound {atol})")
+    return False
+
+
+def cli_batch(cfg, dev):
+    """Phase 12's CLI stream's first batch (max_batch 4), left-padded as
+    ``ServeEngine`` pads it -> (tokens (4, L), L)."""
+    import numpy as np
+    import torch
+    reqs = lm_stream("cli", cfg)[:LM_STREAMS["cli"][3]]
+    lmax = max(len(r.prompt) for r in reqs)
+    toks = np.zeros((len(reqs), lmax), np.int32)
+    for i, r in enumerate(reqs):
+        toks[i, lmax - len(r.prompt):] = r.prompt
+    return torch.as_tensor(toks, device=dev), lmax
+
+
+def timed(fn):
+    """(result, wall s) of ``fn()``, synchronised."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def mesh_serving(dev, mesh, cfg):
+    """(a) serving: internlm2-1.8b's CLI batch prefilled and decoded
+    DECODE_STEPS greedy steps, the plain model against its ``DTensor``
+    copy (``param_specs(fsdp=None)`` through ``to_shardings``, the batch
+    on "data"), the same tokens fed to both."""
+    import copy
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import init_params, sharding_ctx
+    from repro_torch.models.transformer import param_specs
+
+    model = init_params(0, cfg, device=dev.type)
+    tokens, lmax = cli_batch(cfg, dev)
+    cap = lmax + DECODE_STEPS
+    prefill = steps.make_prefill_step(cfg, cap)
+    decode = steps.make_decode_step(cfg)
+    # each prefill twice: the first call of a shape warms caches (cuBLAS
+    # heuristics; DTensor's sharding propagation)
+    t_pre = [timed(lambda: prefill(model, {"tokens": tokens}))[1]]
+    (logits, cache), t = timed(lambda: prefill(model, {"tokens": tokens}))
+    t_pre.append(t)
+    feed, want, t_dec = [], [logits], []
+    for i in range(DECODE_STEPS):
+        feed.append(torch.argmax(want[-1], -1))
+        (lg, cache), t = timed(lambda: decode(model, cache, feed[-1],
+                                              lmax + i))
+        want.append(lg)
+        t_dec.append(t)
+    specs = param_specs(cfg, fsdp=None, model_axis_size=1)
+    shardings = steps.to_shardings(mesh, specs)
+    check(set(shardings) == {n for n, _ in model.named_parameters()},
+          "(a) to_shardings does not cover the parameters")
+    sharding_ctx.set_axes(batch="data", model="model")
+    try:
+        dmodel = steps.distribute_params(copy.deepcopy(model), mesh, specs)
+        dbatch = steps.distribute_tree({"tokens": tokens}, mesh,
+                                       {"tokens": ("data", None)})
+        d_pre = [timed(lambda: prefill(dmodel, dbatch))[1]]
+        (dlogits, dcache), t = timed(lambda: prefill(dmodel, dbatch))
+        d_pre.append(t)
+        got, d_dec = [dlogits], []
+        for i in range(DECODE_STEPS):
+            tok = steps.distribute_tree(feed[i], mesh, ("data",))
+            (lg, dcache), t = timed(lambda: decode(dmodel, dcache, tok,
+                                                   lmax + i))
+            got.append(lg)
+            d_dec.append(t)
+    finally:
+        sharding_ctx.clear_axes()
+    same = [bits_or_bound(f"logits at step {i}", g, w, 5e-2)
+            for i, (g, w) in enumerate(zip(got, want))]
+    same += [bits_or_bound(f"cache layer {i} {k}", dc[k], pc[k], 5e-2)
+             for i, (dc, pc) in enumerate(zip(dcache, cache)) for k in pc]
+    verdict = "bit-identical" if all(same) else "within 5e-2"
+    per = DECODE_STEPS - 1
+    log(f"phase 15 (a): {LM_ARCH} serving on the (data=1, model=1) mesh: "
+        f"prefill of the CLI batch (4 x {lmax}) and {DECODE_STEPS} decode "
+        f"steps, logits and cache {verdict} to the plain model; prefill "
+        f"(first, second call) {t_pre[0] * 1e3:.2f}, {t_pre[1] * 1e3:.2f} ms "
+        f"plain / {d_pre[0] * 1e3:.2f}, {d_pre[1] * 1e3:.2f} ms DTensor, "
+        f"decode "
+        f"{1e3 * sum(t_dec[1:]) / per:.2f} / {1e3 * sum(d_dec[1:]) / per:.2f}"
+        f" ms a step (steps 2-{DECODE_STEPS}); {card_line()}")
+    del model, dmodel, cache, dcache
+    torch.cuda.empty_cache()
+
+
+def mesh_training(dev, mesh, cfg):
+    """(a) training and (c) the memory model: one step of phase 13's first
+    batch from the seed-0 f32 masters, (c) under the dry-run's live-bytes
+    tracker at world size 1 against ``torch.cuda.max_memory_allocated``,
+    then plain and on the mesh (FSDP layout, ``param_specs(fsdp="data")``),
+    timed, the metrics and the updated masters compared."""
+    import torch
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models import init_params, sharding_ctx
+    from repro_torch.models.transformer import param_specs
+    from repro_torch.optim import AdamWConfig, init_opt_state
+
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS)
+    batch = train_batches(0, cfg, TRAIN_B, TRAIN_S, 1, dev)[0]
+    # (c): the tracker's prediction against the card's peak, the step's
+    # arguments alone resident
+    model = init_params(0, cfg, device=dev.type, master=True)
+    state = init_opt_state(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem = dryrun.count_step(steps._train_step_tensors(cfg, opt),
+                            (model, state, batch), in_place=2)["memory"]
+    torch.cuda.synchronize()
+    card = torch.cuda.max_memory_allocated()
+    ratio = mem["peak_bytes"] / card
+    check(abs(ratio - 1) <= 0.25, f"(c) the tracker's peak "
+          f"{lm_gib(mem['peak_bytes'])} is not within 25% of the card's "
+          f"{lm_gib(card)}")
+    log(f"phase 15 (c): {LM_ARCH} train step (B = {TRAIN_B}, S = "
+        f"{TRAIN_S}) at world size 1: predicted peak "
+        f"{lm_gib(mem['peak_bytes'])} (argument "
+        f"{lm_gib(mem['argument_bytes'])} + max(output "
+        f"{lm_gib(mem['output_bytes'])}, temp {lm_gib(mem['temp_bytes'])}))"
+        f", card max_memory_allocated {lm_gib(card)}, ratio {ratio:.4f}; "
+        f"{card_line()}")
+    del model, state
+    torch.cuda.empty_cache()
+    # (a): plain, then on the mesh, from the same seed
+    step = steps.make_train_step(cfg, opt)
+    model = init_params(0, cfg, device=dev.type, master=True)
+    state = init_opt_state(model)
+    want, t_plain = timed(lambda: step(model, state, batch))
+    del state
+    torch.cuda.empty_cache()
+    p_specs = param_specs(cfg, fsdp="data", model_axis_size=1)
+    sharding_ctx.set_axes(batch="data", model="model")
+    try:
+        dmodel = steps.distribute_params(
+            init_params(0, cfg, device=dev.type, master=True), mesh,
+            p_specs)
+        dstate = init_opt_state(dmodel)
+        dbatch = steps.distribute_tree(batch, mesh, {
+            k: ("data", None) for k in batch})
+        got, t_mesh = timed(lambda: step(dmodel, dstate, dbatch))
+    finally:
+        sharding_ctx.clear_axes()
+    check(all(abs(got[k] - want[k]) <= 1e-5 * max(1.0, abs(want[k]))
+              for k in want), f"(a) train metrics {got} against {want}")
+    same = [bits_or_bound(f"master {n}", dmodel.get_parameter(n), p, 1e-5)
+            for n, p in model.named_parameters()]
+    log(f"phase 15 (a): {LM_ARCH} train step on the mesh (f32 masters in "
+        f"the FSDP layout, bf16 compute): loss {got['loss']:.6f} / plain "
+        f"{want['loss']:.6f}, grad_norm {got['grad_norm']:.6f} / "
+        f"{want['grad_norm']:.6f}, metrics "
+        f"{'equal' if got == want else 'within 1e-5'}, updated masters "
+        f"{'bit-identical' if all(same) else 'within 1e-5'}; step wall "
+        f"{t_plain:.3f} s plain / {t_mesh:.3f} s DTensor; {card_line()}")
+    del model, dmodel, dstate
+    torch.cuda.empty_cache()
+
+
+def spec_bytes(tree, specs) -> int:
+    """Bytes of one device's shard (the ceil-sized first) of every tensor
+    of ``tree`` laid out by the matching ``specs`` (the production mesh's
+    axis sizes); a Python int (the optimizer step, the position) counts
+    as an int32 scalar."""
+    import torch
+    if isinstance(tree, dict):
+        return sum(spec_bytes(tree[k], specs[k]) for k in tree)
+    if isinstance(tree, list):
+        return sum(spec_bytes(t, s) for t, s in zip(tree, specs))
+    if not isinstance(tree, torch.Tensor):
+        return 4
+    n = 1
+    for i, dim in enumerate(tree.shape):
+        entry = specs[i] if i < len(specs) else None
+        ways = 1
+        for a in (entry if isinstance(entry, tuple) else
+                  () if entry is None else (entry,)):
+            ways *= AXIS_SIZE[a]
+        n *= -(-dim // ways)
+    return n * tree.element_size()
+
+
+def expected_argument_bytes(arch, shape, multi_pod) -> int:
+    """A cell's argument bytes from the port's specs, no mesh: the meta
+    builds of ``build_jitted`` laid out by ``param_specs``,
+    ``opt_state_specs``, ``batch_specs`` and ``cache_specs``."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.configs.base import input_specs
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import batch_axes, fsdp_axes
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import cache_specs, param_specs
+    from repro_torch.optim import init_opt_state
+    from repro_torch.optim.adamw import opt_state_specs
+
+    cfg = get_config(arch)
+    sh = INPUT_SHAPES[shape]
+    kind = sh["kind"]
+    bax = batch_axes(multi_pod, sh["global_batch"])
+    inputs = input_specs(cfg, shape)
+    if kind == "train":
+        model = init_params(0, cfg, "meta", master=True)
+        p = param_specs(cfg, fsdp=fsdp_axes(multi_pod), model_axis_size=16)
+        named = dict(model.named_parameters())
+        return (spec_bytes(named, p)
+                + spec_bytes(init_opt_state(model), opt_state_specs(p))
+                + spec_bytes(inputs["batch"], steps.batch_specs(
+                    cfg, shape, multi_pod, kind)))
+    named = dict(steps._serve_dtype(init_params(0, cfg, "meta"),
+                                    cfg).named_parameters())
+    p = param_specs(cfg, fsdp=None, model_axis_size=16)
+    if kind == "prefill":
+        return spec_bytes(named, p) + spec_bytes(
+            inputs["batch"], steps.batch_specs(cfg, shape, multi_pod, kind))
+    seq_axis = "data" if bax is None else None
+    return (spec_bytes(named, p)
+            + spec_bytes(inputs["cache"], cache_specs(cfg, bax, seq_axis,
+                                                      "seq"))
+            + spec_bytes(inputs["token"], (bax,)) + 4)
+
+
+FLOPS_BAND = (0.5, 2.0)
+
+
+def shape_flops(arch, shape, multi_pod) -> float:
+    """A cell's matmul FLOPs a device worked out from its shapes and
+    specs alone: 2 x every weight a token multiplies (the vocab head once
+    a sequence in prefill; an MoE expert's weighted by its capacity C of
+    each group of gs tokens, plus the dispatch and combine products) x
+    the tokens, over
+    the batch's axes and, for a weight whose spec puts a dim on it, the
+    model axis (a weight whole over it, sLSTM's or k/v's, is multiplied
+    on every model rank); plus the score and value products over the
+    context (4 x context x heads' width a token, for attention,
+    cross-attention and mLSTM's parallel form, whole tiles as the port
+    computes them) over every device; x 4 for a train step (forward,
+    rematerialised forward, backward's two products)."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.configs.base import decode_capacity
+    from repro_torch.launch.mesh import batch_axes
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import (ATTN_TYPES, decoder_types,
+                                                param_specs)
+
+    cfg, sh = get_config(arch), INPUT_SHAPES[shape]
+    kind, b, s = sh["kind"], sh["global_batch"], sh["seq_len"]
+    full = kind in ("train", "prefill")
+    tokens = b * (s if full else 1)
+    ctx = s if full else decode_capacity(cfg, shape)
+    enc_len = s // cfg.src_ratio if cfg.n_enc_layers else 0
+    enc_tokens = b * enc_len if full else 0
+    bax = batch_axes(multi_pod, b)
+    batch_ways = 1
+    for a in (bax if isinstance(bax, tuple) else () if bax is None
+              else (bax,)):
+        batch_ways *= AXIS_SIZE[a]
+    devices = AXIS_SIZE["data"] * AXIS_SIZE["model"] * (2 if multi_pod
+                                                         else 1)
+    specs = param_specs(cfg, fsdp=None, model_axis_size=AXIS_SIZE["model"])
+    moe = cfg.moe
+    if moe:
+        gs = min(moe.group_size, tokens)
+        slots = moe.n_experts * math.ceil(gs * moe.top_k
+                                          * moe.capacity_factor
+                                          / moe.n_experts)
+    flops = 0.0
+    for name, p in init_params(0, cfg, "meta").named_parameters():
+        if p.ndim < 2 or name == "embed" or name.endswith("conv_w"):
+            continue
+        n = 2.0 * p.numel()
+        if moe and ".moe." in name and ".shared." not in name \
+                and not name.endswith("router"):
+            n *= slots / gs / moe.n_experts    # each expert's C of gs
+        ways = batch_ways * (AXIS_SIZE["model"] if "model" in specs[name]
+                             else 1)
+        rows = enc_tokens if name.startswith("encoder.") else \
+            b if name == "head" and kind == "prefill" else tokens
+        flops += n * rows / ways
+    width = cfg.n_heads * cfg.head_dim
+    per_tok = 0.0
+    for lt in decoder_types(cfg):
+        if lt in ATTN_TYPES:
+            per_tok += 4 * ctx * width
+            if moe:
+                per_tok += 4 * slots * cfg.d_model   # dispatch, combine
+        if lt == "xattn":
+            per_tok += 4 * enc_len * width
+        if lt == "mlstm":
+            per_tok += 4 * ctx * cfg.xlstm.up_factor * cfg.d_model
+    flops += (tokens * per_tok + enc_tokens * cfg.n_enc_layers * 4
+              * enc_len * width) / devices
+    return flops * (4 if kind == "train" else 1)
+
+
+def dry_run_cells(workdir, device):
+    """(b) ``python -m repro_torch.launch.dryrun`` on DRY_GROUPS, one
+    process a group, all started together: every process exits 0, every
+    cell's argument bytes are the specs' sum and its FLOPs within
+    FLOPS_BAND of :func:`shape_flops`."""
+    import os
+    from repro_torch.configs import INPUT_SHAPES
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = []
+    for arch, shapes, mesh in DRY_GROUPS:
+        for shape in shapes or (None,):
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--mesh", mesh, "--out", str(workdir),
+                   "--device", device]
+            if shape:
+                cmd += ["--shape", shape]
+            procs.append((cmd, subprocess.Popen(
+                cmd, cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)))
+    t0 = time.perf_counter()
+    outs = []
+    try:
+        for cmd, p in procs:
+            left = max(1.0, DRY_TIMEOUT - (time.perf_counter() - t0))
+            out, err = p.communicate(timeout=left)
+            outs.append((cmd, p.returncode, out, err))
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for cmd, rc, out, err in outs:
+        for line in out.splitlines():
+            if line.startswith("[ok]") or line.startswith("[FAIL]"):
+                log(f"phase 15 (b): {line}")
+        check(rc == 0, f"(b) {' '.join(cmd[2:])} exited {rc}: "
+              f"{err.strip()[-2000:]}")
+    cells = sorted(workdir.glob("*.json"))
+    want = sum(len(shapes or INPUT_SHAPES) * (2 if mesh == "both" else 1)
+               for _, shapes, mesh in DRY_GROUPS)
+    check(len(cells) == want, f"(b) {len(cells)} cell files, not {want}")
+    for path in cells:
+        r = json.loads(path.read_text())
+        exp = expected_argument_bytes(r["arch"], r["shape"],
+                                      r["mesh"] == "multipod")
+        check(r["memory"]["argument_bytes"] == exp, f"(b) {path.name}: "
+              f"argument bytes {r['memory']['argument_bytes']}, the specs "
+              f"give {exp}")
+        est = shape_flops(r["arch"], r["shape"], r["mesh"] == "multipod")
+        ratio = r["cost"]["flops"] / est
+        check(FLOPS_BAND[0] <= ratio <= FLOPS_BAND[1], f"(b) {path.name}: "
+              f"flops {r['cost']['flops']:.4e}, {ratio:.3f}x the "
+              f"{est:.4e} its shapes give (band {FLOPS_BAND})")
+        coll = {k: v["bytes"] for k, v in r["collectives"].items()
+                if v["count"]}
+        log(f"phase 15 (b): {path.stem}: flops {r['cost']['flops']:.6e} "
+            f"({ratio:.4f}x the shapes' {est:.6e}), "
+            f"collective bytes {coll}, peak {r['memory']['peak_bytes']:,} B,"
+            f" argument bytes {exp:,} (the specs' sum), build "
+            f"{r['lower_s']} s, walk {r['compile_s']} s")
+
+
+def phase_sharding_dryrun(dev, report):
+    """Phase 15: (a) internlm2-1.8b at full width and depth on a (data=1,
+    model=1) NCCL mesh as ``DTensor``s, against the plain path: prefill
+    of the CLI batch and DECODE_STEPS decode steps, one train step; (b)
+    the dry-run CLI on DRY_GROUPS' cells over a fake group of 256 or 512
+    ranks, in subprocesses; (c) the dry-run's memory model against the
+    card on phase 13's train step."""
+    import tempfile
+    from pathlib import Path as _Path
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    cfg = get_config(LM_ARCH, "full")
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = host_mesh_2d(dev, _Path(tmp))
+        try:
+            for part in (mesh_serving, mesh_training):
+                t0 = time.perf_counter()
+                part(dev, mesh, cfg)
+                log(f"phase 15: {part.__name__} took "
+                    f"{time.perf_counter() - t0:.1f} s")
+        finally:
+            dist.destroy_process_group()
+        t0 = time.perf_counter()
+        dry_run_cells(_Path(tmp) / "dryrun", dev.type)
+        log(f"phase 15 (b): took {time.perf_counter() - t0:.1f} s")
+    launches = kernel_counts()
+    log(f"phase 15: kernel launches {launches} (the substrate runs none of "
+        f"the five); took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: the repository (src/repro_torch) is not beside "
@@ -4533,7 +5009,8 @@ def main() -> int:
               ("transformer serving", phase_transformer_serving),
               ("transformer training and MoE", phase_training_moe),
               ("recurrent, xLSTM and encoder-decoder families",
-               phase_recurrent_encdec)]
+               phase_recurrent_encdec),
+              ("sharding context, mesh and dry-run", phase_sharding_dryrun)]
     for name, fn in phases:
         if failures:
             log(f"skipping phase {name!r} after a failure")

@@ -156,12 +156,35 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return np.array(t.detach().to("cpu", torch.float32).numpy())
 
 
-def _module_tree(m: nn.Module) -> dict:
-    """A module's parameters as the JAX package's nested dict of numpy
-    leaves (its submodule and parameter names are the JAX keys)."""
-    tree = {n: _numpy(p) for n, p in m.named_parameters(recurse=False)}
+def _module_tree(m: nn.Module, leaf=None) -> dict:
+    """A module's parameters as the JAX package's nested dict (its
+    submodule and parameter names are the JAX keys), each leaf
+    ``leaf(parameter)`` (default: a float32 numpy copy)."""
+    leaf = leaf or _numpy
+    tree = {n: leaf(p) for n, p in m.named_parameters(recurse=False)}
     for name, child in m.named_children():
-        tree[name] = _module_tree(child)
+        tree[name] = _module_tree(child, leaf)
+    return tree
+
+
+def _to_jax_tree(model: Transformer, leaf, stack) -> dict:
+    """The JAX package's parameter tree of ``model`` with each leaf
+    ``leaf(parameter)`` and each stacked group ``stack(list of trees)``."""
+    cfg = model.cfg
+    layers = [_module_tree(b, leaf) for b in model.layers]
+    head, n = cfg.first_k_dense, len(cfg.pattern)
+    body = layers[head:head + cfg.n_groups * n]
+    blocks = [stack([body[g * n + i] for g in range(cfg.n_groups)])
+              if cfg.n_groups else None for i in range(n)]
+    tree = {"embed": leaf(model.embed), "head": leaf(model.head),
+            "final_norm": leaf(model.final_norm),
+            "head_layers": layers[:head], "blocks": blocks,
+            "tail": layers[head + cfg.n_groups * n:]}
+    if model.encoder is not None:
+        tree["encoder"] = {
+            "blocks": stack([_module_tree(b, leaf)
+                             for b in model.encoder.layers]),
+            "final_norm": leaf(model.encoder.final_norm)}
     return tree
 
 
@@ -174,21 +197,23 @@ def model_params_to_jax(model: Transformer) -> dict:
     ``repro.checkpoint.load_checkpoint`` restores what
     ``repro_torch.checkpoint.save_checkpoint`` writes of it. Leaves are
     float32 numpy arrays (bf16 is widened exactly)."""
-    cfg = model.cfg
-    layers = [_module_tree(b) for b in model.layers]
-    head, n = cfg.first_k_dense, len(cfg.pattern)
-    body = layers[head:head + cfg.n_groups * n]
-    blocks = [_stack([body[g * n + i] for g in range(cfg.n_groups)])
-              if cfg.n_groups else None for i in range(n)]
-    tree = {"embed": _numpy(model.embed), "head": _numpy(model.head),
-            "final_norm": _numpy(model.final_norm),
-            "head_layers": layers[:head], "blocks": blocks,
-            "tail": layers[head + cfg.n_groups * n:]}
-    if model.encoder is not None:
-        tree["encoder"] = {
-            "blocks": _stack([_module_tree(b) for b in model.encoder.layers]),
-            "final_norm": _numpy(model.encoder.final_norm)}
-    return tree
+    return _to_jax_tree(model, _numpy, _stack)
+
+
+def specs_to_jax(model: Transformer, specs: dict) -> dict:
+    """``param_specs``' specs (keyed by ``model.named_parameters()``'s
+    names) in the JAX package's parameter tree, by the mapping of
+    :func:`model_params_to_jax`; a stacked group's spec gains the
+    reference's replicated leading (group) axis. ``model`` may be a meta
+    build (``init_params(..., device="meta")``)."""
+    by_param = {id(p): specs[n] for n, p in model.named_parameters()}
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return (None,) + trees[0]
+
+    return _to_jax_tree(model, lambda p: by_param[id(p)], stack)
 
 
 def _stack(trees: list):

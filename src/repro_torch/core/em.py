@@ -303,6 +303,21 @@ def e_step_stats(gmm: GMM, x: torch.Tensor,
     return _e_step_batched(gmm, x, w, backend, chunk_size)
 
 
+def e_step_stats_chunked(gmm: GMM, x: torch.Tensor,
+                         sample_weight: Optional[torch.Tensor] = None,
+                         chunk_size: int = 4096,
+                         estep_backend: str = "auto") -> SufficientStats:
+    """Constant-memory E-step over fixed-size row chunks (the reference's
+    spelling of ``e_step_stats(..., chunk_size=)``).
+
+    ``SufficientStats`` is additive in N, so the full-batch statistics are
+    the chunk-wise sum: the working set is one (chunk_size, K) block
+    instead of the whole (N, K) responsibility matrix. The fused backend
+    computes each chunk in float32 whatever ``x``'s dtype."""
+    return e_step_stats(gmm, x, sample_weight, estep_backend,
+                        chunk_size=int(chunk_size))
+
+
 def _estep_block(gmm: GMM, xb: torch.Tensor, wb: torch.Tensor,
                  backend: str) -> SufficientStats:
     """The E-step of one source block with its 0/1 pad mask, run as a

@@ -1,1 +1,3 @@
-"""Launcher of the port: the static-batching serving loop (``serve``)."""
+"""Launcher of the port: the step functions and their sharding
+(``steps``), the static-batching serving loop (``serve``), the trainer
+(``train``), the production mesh (``mesh``) and the dry-run (``dryrun``)."""

@@ -11,8 +11,15 @@ The rounding points are the reference's: the score product runs in the
 compute dtype and is rounded there, then cast to float32, scaled and
 masked; the float32 softmax is cast back to the compute dtype before the
 product with v. Plain einsum/softmax keep them, which a fused attention
-call would not. The JAX package's sharding constraints are no-ops on one
-card and are dropped.
+call would not.
+
+Sharding (the reference's flat-head Megatron layout): train and prefill
+project q to (B, S, H, hd) with H on the model axis, k/v model-replicated
+and repeated to H flat heads (a local slice under the head constraint),
+and the only tensor-parallel collective is the row-parallel reduction
+after w_o. The constraints (``sharding_ctx.constrain``) act where the
+launcher set the axes and the tensors are ``DTensor``s; elsewhere they
+return their input.
 
 Decode writes the new key and value into the preallocated cache in place
 (the reference returns updated copies) and returns the same tensors.
@@ -28,6 +35,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.common import (apply_rope, dense_init, frozen,
                                        make_rope)
+from repro_torch.models.sharding_ctx import (axis_size, constrain, einsum,
+                                             is_dtensor, layout, softmax,
+                                             write_slot)
 
 NEG_INF = -1e30
 
@@ -63,6 +73,18 @@ def attn_init(gen: torch.Generator, d_model: int, dims: AttnDims,
         dense_init(gen, (h, hd, d_model), h * hd).to(dtype))
 
 
+def attn_specs(fsdp_axis="data") -> dict:
+    """Flat q heads sharded on model (column-parallel); kv projections
+    replicated on model (small: D*KV*hd) so the head repeat is a local
+    slice; w_o row-parallel (one reduction per layer)."""
+    return {
+        "wq": (fsdp_axis, "model", None),
+        "wk": (fsdp_axis, None, None),
+        "wv": (fsdp_axis, None, None),
+        "wo": ("model", None, fsdp_axis),
+    }
+
+
 # ----------------------------------------------------------------------
 # Core attention math (flat heads)
 # ----------------------------------------------------------------------
@@ -83,21 +105,38 @@ def flat_scores_softmax_out(q, k, v, mask):
     """q (B,Sq,H,hd), k/v (B,Sk,H,hd), mask (Bm,Sq,Sk) -> (B,Sq,H,hd);
     softmax in float32."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    scores = torch.einsum("bqhe,bshe->bhqs", q, k)
+    heads = {"b": "batch", "h": "model"}
+    scores = einsum("bqhe,bshe->bhqs", q, k, shard=heads)
     scores = scores.to(torch.float32) * scale + mask[:, None]
-    w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhqs,bshe->bqhe", w.to(v.dtype), v)
+    w = softmax(scores, dim=-1)
+    out = einsum("bhqs,bshe->bqhe", w.to(v.dtype), v, shard=heads)
     return out.to(q.dtype)
+
+
+def _gqa_layout(q, k) -> dict:
+    """The grouped products' layout on a mesh: the batch on its axes and
+    k/v's own layout (a decode cache's length or head_dim on the model
+    axis), and where that leaves the model axis free, the KV heads on it
+    if it divides them."""
+    if not is_dtensor(k):
+        return {}
+    lay = {"b": "batch", **layout(k, "bskh")}
+    free = all("model" not in (a if isinstance(a, tuple) else (a,))
+               for a in lay.values() if a != "batch")
+    if free and k.shape[2] % axis_size(q, "model") == 0:
+        lay["k"] = "model"
+    return lay
 
 
 def gqa_scores_softmax_out(q, k, v, mask):
     """Grouped decode form. q (B,Sq,KV,G,hd), k/v (B,Sk,KV,hd),
     mask (Bm,Sq,Sk) -> (B,Sq,KV,G,hd)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    scores = torch.einsum("bqkgh,bskh->bkgqs", q, k)
+    lay = _gqa_layout(q, k)
+    scores = einsum("bqkgh,bskh->bkgqs", q, k, shard=lay)
     scores = scores.to(torch.float32) * scale + mask[:, None, None]
-    w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgqs,bskh->bqkgh", w.to(v.dtype), v)
+    w = softmax(scores, dim=-1)
+    out = einsum("bkgqs,bskh->bqkgh", w.to(v.dtype), v, shard=lay)
     return out.to(q.dtype)
 
 
@@ -141,35 +180,56 @@ def chunked_causal_attention(q, k, v, q_positions, k_positions, *,
 # Block-level API
 # ----------------------------------------------------------------------
 
+def _project_q(params: Attention, x):
+    """x (B,S,D) -> q (B,S,H,hd), unconstrained (decode, cross-attention)."""
+    return einsum("bsd,dhe->bshe", x, params.wq.to(x.dtype),
+                  shard={"b": "batch", "h": "model"})
+
+
 def _project_q_flat(params: Attention, x):
-    """x (B,S,D) -> q (B,S,H,hd)."""
-    return torch.einsum("bsd,dhe->bshe", x, params.wq.to(x.dtype))
+    """x (B,S,D) -> q (B,S,H,hd), head-sharded (column parallel)."""
+    return constrain(_project_q(params, x), ("batch", None, "model", None))
 
 
 def _project_kv(params: Attention, x):
-    """x (B,S,D) -> k, v (B,S,KV,hd)."""
-    k = torch.einsum("bsd,dkh->bskh", x, params.wk.to(x.dtype))
-    v = torch.einsum("bsd,dkh->bskh", x, params.wv.to(x.dtype))
+    """x (B,S,D) -> k, v (B,S,KV,hd), model-replicated."""
+    k = einsum("bsd,dkh->bskh", x, params.wk.to(x.dtype),
+               shard={"b": "batch"})
+    v = einsum("bsd,dkh->bskh", x, params.wv.to(x.dtype),
+               shard={"b": "batch"})
     return k, v
 
 
 def _repeat_heads(kv, g: int):
-    """(B,S,KV,hd) -> (B,S,H,hd), kv-major."""
-    return torch.repeat_interleave(kv, g, dim=2)
+    """(B,S,KV,hd) -> (B,S,H,hd), kv-major; a local slice under the
+    head-sharded constraint (kv is model-replicated)."""
+    rep = torch.repeat_interleave(kv, g, dim=2)
+    return constrain(rep, ("batch", None, "model", None))
+
+
+def _project_q_grouped(params: Attention, x, dims: AttnDims):
+    """x (B,S,D) -> q (B,S,KV,G,hd). Where the model axis does not divide
+    the KV heads, H sharded over it cannot split into (KV, G): q is
+    gathered over the model axis first (GSPMD regathers the reference's
+    the same way)."""
+    b, s, _ = x.shape
+    q = _project_q(params, x)
+    if dims.n_kv_heads % axis_size(q, "model"):
+        q = constrain(q, ("batch", None, None, None))
+    return q.reshape(b, s, dims.n_kv_heads, dims.n_heads // dims.n_kv_heads,
+                     dims.head_dim)
 
 
 def _project_qkv(params: Attention, x, dims: AttnDims):
     """Grouped projection (decode path): q (B,S,KV,G,hd), k/v (B,S,KV,hd)."""
-    b, s, _ = x.shape
-    g = dims.n_heads // dims.n_kv_heads
-    q = _project_q_flat(params, x).reshape(b, s, dims.n_kv_heads, g,
-                                           dims.head_dim)
+    q = _project_q_grouped(params, x, dims)
     k, v = _project_kv(params, x)
     return q, k, v
 
 
 def _out_proj(params: Attention, out, dtype):
-    return torch.einsum("bshe,hed->bsd", out, params.wo.to(dtype))
+    return einsum("bshe,hed->bsd", out, params.wo.to(dtype),
+                  shard={"b": "batch", "h": "model"})   # row parallel
 
 
 def attention_forward(params: Attention, x, positions, dims: AttnDims, *,
@@ -189,7 +249,9 @@ def attention_forward(params: Attention, x, positions, dims: AttnDims, *,
                                    _repeat_heads(v, g), positions, positions,
                                    causal=causal, window=dims.window,
                                    chunk=chunk, remat=remat)
+    out = constrain(out, ("batch", None, "model", None))
     out = _out_proj(params, out, x.dtype)
+    out = constrain(out, ("batch", None, None))          # row-parallel sum
     if return_kv:
         return out, (k, v)
     return out
@@ -238,8 +300,8 @@ def attention_decode(params: Attention, x, pos: int, cache_k, cache_v,
         .reshape(q.shape)
     k = apply_rope(k, cos, sin)
     slot = pos % c if ring else min(pos, c - 1)
-    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    write_slot(cache_k, slot, k[:, 0].to(cache_k.dtype))
+    write_slot(cache_v, slot, v[:, 0].to(cache_v.dtype))
     mask = decode_mask(pos, c, ring, window, x.device)
     out = gqa_scores_softmax_out(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
                                  mask)

@@ -6,6 +6,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.common import activation_fn, dense_init, frozen
+from repro_torch.models.sharding_ctx import matmul
 
 
 class MLP(nn.Module):
@@ -33,12 +34,19 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
     return MLP(w_up, w_down, w_gate)
 
 
+def mlp_specs(gated: bool = True, fsdp_axis="data") -> dict:
+    p = {"w_up": (fsdp_axis, "model"), "w_down": ("model", fsdp_axis)}
+    if gated:
+        p["w_gate"] = (fsdp_axis, "model")
+    return p
+
+
 def mlp_forward(params: MLP, x: torch.Tensor,
                 activation: str = "silu") -> torch.Tensor:
     act = activation_fn(activation)
-    up = x @ params.w_up.to(x.dtype)
+    up = matmul(x, params.w_up.to(x.dtype), n="model")
     if params.w_gate is not None:
-        up = act(x @ params.w_gate.to(x.dtype)) * up
+        up = act(matmul(x, params.w_gate.to(x.dtype), n="model")) * up
     else:
         up = act(up)
-    return up @ params.w_down.to(x.dtype)
+    return matmul(up, params.w_down.to(x.dtype), k="model")

@@ -17,8 +17,11 @@ priority). The rounding points are the reference's: the router product in
 the compute dtype, cast to float32 for the softmax; dispatch and combine
 cast to the compute dtype for the expert einsums (dispatch is exact: at
 most one nonzero a slot; combine weights round); the aux loss in float32.
-The JAX package's sharding constraints are no-ops on one card and are
-dropped; the expert products are plain einsums there and here.
+The expert products are plain einsums here as there; the reference's
+sharding constraints (token groups on the batch axes, the dispatched
+(G, E, C, D) blocks on the expert axis) act through
+``sharding_ctx.constrain`` where the launcher set the axes and the
+tensors are ``DTensor``s, and return their input elsewhere.
 """
 from __future__ import annotations
 
@@ -29,7 +32,9 @@ import torch
 from torch import nn
 
 from repro_torch.models.common import activation_fn, dense_init, frozen
-from repro_torch.models.mlp import MLP, mlp_forward, mlp_init
+from repro_torch.models.mlp import MLP, mlp_forward, mlp_init, mlp_specs
+from repro_torch.models.sharding_ctx import (axis_size, constrain, einsum,
+                                             matmul)
 
 
 class MoEDims(NamedTuple):
@@ -56,6 +61,14 @@ class MoE(nn.Module):
         self.shared = shared
 
 
+def _expert_axis_sharded(dims: MoEDims, model_axis_size: int) -> bool:
+    if dims.expert_sharding == "expert":
+        return True
+    if dims.expert_sharding == "tensor":
+        return False
+    return dims.n_experts % model_axis_size == 0
+
+
 def moe_init(gen: torch.Generator, d_model: int, dims: MoEDims,
              dtype=torch.float32) -> MoE:
     e, f = dims.n_experts, dims.d_ff
@@ -66,6 +79,19 @@ def moe_init(gen: torch.Generator, d_model: int, dims: MoEDims,
     shared = (mlp_init(gen, d_model, dims.n_shared * f, gated=True,
                        dtype=dtype) if dims.n_shared else None)
     return MoE(router, w_gate, w_up, w_down, shared)
+
+
+def moe_specs(dims: MoEDims, model_axis_size: int, fsdp_axis="data") -> dict:
+    if _expert_axis_sharded(dims, model_axis_size):
+        w = ("model", fsdp_axis, None)    # expert parallelism
+        wd = ("model", None, fsdp_axis)
+    else:
+        w = (None, fsdp_axis, "model")    # tensor parallelism inside experts
+        wd = (None, "model", fsdp_axis)
+    p = {"router": (fsdp_axis, None), "w_gate": w, "w_up": w, "w_down": wd}
+    if dims.n_shared:
+        p["shared"] = mlp_specs(gated=True, fsdp_axis=fsdp_axis)
+    return p
 
 
 def capacity(dims: MoEDims, gs: int) -> int:
@@ -100,11 +126,17 @@ def moe_forward(params: MoE, x: torch.Tensor, dims: MoEDims,
     if pad:  # zero-pad to a group multiple; padded rows are sliced off below
         tokens = torch.cat([tokens, tokens.new_zeros((pad, d))])
     g = (t + pad) // gs
-    tokens = tokens.reshape(g, gs, d)
+    # groups on the batch axes; too few groups to split (decode) stay
+    # whole on every rank (a dim of one group cannot be reshaped sharded)
+    batch = "batch" if g > 1 and g % axis_size(tokens, "batch") == 0 \
+        else None
+    tokens = constrain(tokens, (batch, None))
+    tokens = constrain(tokens.reshape(g, gs, d), (batch, None, None))
     e, k = dims.n_experts, dims.top_k
     cap = capacity(dims, gs)
 
-    logits = (tokens @ params.router.to(x.dtype)).to(torch.float32)
+    logits = matmul(tokens, params.router.to(x.dtype),
+                    batch=batch).to(torch.float32)
     probs = torch.softmax(logits, dim=-1)                       # (g, gs, E)
     top_w, top_i = top_k_stable(logits, k)                      # (g, gs, K)
     top_w = torch.softmax(top_w, dim=-1)                        # renormalize
@@ -120,19 +152,36 @@ def moe_forward(params: MoE, x: torch.Tensor, dims: MoEDims,
     dispatch = torch.sum(slot, dim=2)                           # (g,gs,E,C)
     combine = torch.sum(slot * top_w[..., None, None], dim=2)   # (g,gs,E,C)
 
-    xin = torch.einsum("gtec,gtd->gecd", dispatch.to(x.dtype), tokens)
+    # on a mesh the products split as GSPMD splits the reference's:
+    # dispatch and combine over the expert axis, the experts' weights over
+    # it or their width over model (tensor-parallel experts)
+    route = {"g": batch, "e": "expert"}
+    if _expert_axis_sharded(dims, axis_size(x, "model")):
+        x_dims = h_dims = (batch, "expert")
+        ffn = route
+    else:
+        x_dims, h_dims = (batch,), (batch, None, None, "model")
+        ffn = {"g": batch, "f": "model"}
+    slots = (batch, None, "expert")
+    xin = einsum("gtec,gtd->gecd", constrain(dispatch.to(x.dtype), slots),
+                 tokens, shard=route)
+    xin = constrain(constrain(xin, (batch, "expert", None, None)), x_dims)
     act = activation_fn(activation)
-    h = act(torch.einsum("gecd,edf->gecf", xin,
-                         params.w_gate.to(x.dtype))) \
-        * torch.einsum("gecd,edf->gecf", xin, params.w_up.to(x.dtype))
-    xout = torch.einsum("gecf,efd->gecd", h, params.w_down.to(x.dtype))
-    out = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), xout)
+    h = act(einsum("gecd,edf->gecf", xin, params.w_gate.to(x.dtype),
+                   shard=ffn)) \
+        * einsum("gecd,edf->gecf", xin, params.w_up.to(x.dtype), shard=ffn)
+    xout = einsum("gecf,efd->gecd", constrain(h, h_dims),
+                  params.w_down.to(x.dtype), shard=ffn)
+    xout = constrain(xout, (batch, "expert", None, None))
+    out = einsum("gtec,gecd->gtd", constrain(combine.to(x.dtype), slots),
+                 xout, shard=route)
 
     # load-balance aux loss (Switch eq. 4, averaged over groups)
     frac_dispatched = torch.mean(torch.sum(dispatch, dim=-1), dim=1)
     mean_prob = torch.mean(probs, dim=1)
     aux = e * torch.mean(torch.sum(frac_dispatched * mean_prob, dim=-1))
 
+    out = constrain(out, (batch, None, None))
     out = out.reshape(g * gs, d)[:t].reshape(b, s, d)
     if params.shared is not None:
         out = out + mlp_forward(params.shared, x, activation)

@@ -18,7 +18,9 @@ an O(1) state: ``h`` (B, d_rnn) float32 and the last three pre-conv inputs
 (B, 3, d_rnn).
 
 ``log_lambda`` stays float32 in a serving model (the reference reads it as
-float32); the other leaves follow the model's compute dtype.
+float32); the other leaves follow the model's compute dtype. On a mesh
+d_rnn rides the model axis (the reference's constraint on the recurrent
+branch's input), and the causal conv runs on each rank's channels.
 """
 from __future__ import annotations
 
@@ -29,6 +31,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.common import dense_init, frozen
+from repro_torch.models.sharding_ctx import (constrain, einsum, local,
+                                             matmul)
 
 _C = 8.0
 CONV_W = 4
@@ -73,6 +77,19 @@ def rglru_init(gen: torch.Generator, d_model: int, dims: RGLRUDims,
                  w_r.to(dtype), w_i.to(dtype), log_lambda, w_out.to(dtype))
 
 
+def rglru_specs(fsdp_axis="data") -> dict:
+    return {
+        "w_gate_in": (fsdp_axis, "model"),
+        "w_rec_in": (fsdp_axis, "model"),
+        "conv_w": (None, "model"),
+        "conv_b": ("model",),
+        "w_r": (fsdp_axis, "model"),
+        "w_i": (fsdp_axis, "model"),
+        "log_lambda": ("model",),
+        "w_out": ("model", fsdp_axis),
+    }
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``log(1 + exp(x))`` as ``jax.nn.softplus`` computes it
     (``logaddexp(x, 0)``), with no linear cut-off."""
@@ -91,8 +108,8 @@ def _causal_conv(x, w, b):
 def _gates(params: RGLRU, u):
     """u (..., dr) in the compute dtype -> (a, b) float32: the decay and the
     input term of ``h_t = a_t h_{t-1} + b_t``."""
-    r = torch.sigmoid(u @ params.w_r.to(u.dtype))
-    i = torch.sigmoid(u @ params.w_i.to(u.dtype))
+    r = torch.sigmoid(matmul(u, params.w_r.to(u.dtype), n="model"))
+    i = torch.sigmoid(matmul(u, params.w_i.to(u.dtype), n="model"))
     decay = softplus(params.log_lambda.to(torch.float32))
     a = torch.exp(-_C * decay * r.to(torch.float32))
     bterm = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * \
@@ -155,13 +172,16 @@ def rglru_forward(params: RGLRU, x):
     """Training / prefill. x (B, S, D) -> (out (B,S,D), state {"h": (B,dr)
     float32, "conv": (B,3,dr) the last three pre-conv inputs, left-padded
     with zeros when S < 3, in ``x``'s dtype})."""
-    u_pre = x @ params.w_rec_in.to(x.dtype)                      # (B,S,dr)
-    u = _causal_conv(u_pre, params.conv_w.to(u_pre.dtype),
-                     params.conv_b.to(u_pre.dtype))
+    u_pre = constrain(matmul(x, params.w_rec_in.to(x.dtype), n="model"),
+                      ("batch", None, "model"))                 # (B,S,dr)
+    u = local(_causal_conv, (u_pre, params.conv_w.to(u_pre.dtype),
+                             params.conv_b.to(u_pre.dtype)),
+              (("batch", None, "model"), (None, "model"), ("model",)))
     a, bterm = _gates(params, u)
     _, h = associative_scan(_combine, (a, bterm), axis=1)
-    gate = F.gelu(x @ params.w_gate_in.to(x.dtype), approximate="tanh")
-    out = (gate * h.to(x.dtype)) @ params.w_out.to(x.dtype)
+    gate = F.gelu(matmul(x, params.w_gate_in.to(x.dtype), n="model"),
+                  approximate="tanh")
+    out = matmul(gate * h.to(x.dtype), params.w_out.to(x.dtype), k="model")
     s = x.shape[1]
     if s >= CONV_W - 1:
         tail = u_pre[:, s - (CONV_W - 1):]
@@ -174,14 +194,16 @@ def rglru_decode(params: RGLRU, x, h_prev, conv_tail):
     """One-token decode. x (B,1,D); h_prev (B,dr) float32; conv_tail
     (B,3,dr) the last three pre-conv inputs. Returns (out (B,1,D), h,
     new_conv_tail)."""
-    u_new = (x @ params.w_rec_in.to(x.dtype))[:, 0]             # (B, dr)
+    u_new = matmul(x, params.w_rec_in.to(x.dtype),
+                   n="model")[:, 0]                             # (B, dr)
     w = params.conv_w.to(u_new.dtype)
     hist = torch.cat([conv_tail.to(u_new.dtype), u_new[:, None]], dim=1)
-    u = torch.einsum("bwd,wd->bd", hist, w) + params.conv_b.to(u_new.dtype)
+    u = einsum("bwd,wd->bd", hist, w, shard={"b": "batch", "d": "model"}) \
+        + params.conv_b.to(u_new.dtype)
     a, bterm = _gates(params, u)
     h = a * h_prev + bterm                                      # (B, dr) f32
-    gate = F.gelu((x @ params.w_gate_in.to(x.dtype))[:, 0],
+    gate = F.gelu(matmul(x, params.w_gate_in.to(x.dtype), n="model")[:, 0],
                   approximate="tanh")
-    out = (gate * h.to(x.dtype)) @ params.w_out.to(x.dtype)
+    out = matmul(gate * h.to(x.dtype), params.w_out.to(x.dtype), k="model")
     return out[:, None], h, hist[:, 1:].to(conv_tail.dtype)
 

@@ -34,6 +34,13 @@ Three entry points:
     prefill_forward — forward + decode cache construction
     decode_step     — one token with the cache (full, windowed, or ring)
 
+On a mesh (``DTensor`` parameters laid out by :func:`param_specs`, the
+``sharding_ctx`` axes set by the launcher) the reference's layouts hold:
+FSDP masters, heads and d_ff on the model axis, the training residual
+stream sequence-sharded between sublayers (Megatron-SP), the vocab axis
+sharded through the loss; :func:`cache_specs` lays out the decode cache.
+With no mesh the sharding helpers return the plain ops' results.
+
 ``cfg.remat`` rematerialises, where gradients are on, at the reference's
 points: each pattern group of layers, each encoder layer, each loss chunk
 and each query chunk of attention (``torch.utils.checkpoint``,
@@ -64,6 +71,9 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import embed_init, frozen, rms_norm
+from repro_torch.models.sharding_ctx import (constrain, einsum, embedding,
+                                             gather_last, logsumexp,
+                                             matmul)
 
 ATTN_TYPES = ("attn", "swa", "local_attn", "dense_attn", "enc_attn", "xattn")
 LAYER_TYPES = ATTN_TYPES + ("rglru", "mlstm", "slstm")
@@ -72,8 +82,7 @@ LAYER_TYPES = ATTN_TYPES + ("rglru", "mlstm", "slstm")
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The JAX package's model config, field for field (the configs are
-    compared with it). Carried over and not read by the port:
-    ``long_window`` (the dry-run's long-context cell)."""
+    compared with it)."""
 
     name: str
     n_layers: int
@@ -283,6 +292,23 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, ltype: str = "attn",
     raise ValueError(ltype)
 
 
+class _ShapeOnly(torch.Generator):
+    """A generator whose draws land on the meta device: a build through it
+    has every shape and dtype and no values (the counterpart of
+    ``jax.eval_shape`` of the reference's ``init_params``)."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def _build_device(device) -> torch.device:
+    """``"meta"`` (shapes only) or what :func:`resolve_device` accepts."""
+    if torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
 def init_params(seed, cfg: ModelConfig, device="cuda", *,
                 master: bool = False) -> Transformer:
     """A model with weights drawn in float32 from ``seed`` (an int, or a
@@ -291,11 +317,16 @@ def init_params(seed, cfg: ModelConfig, device="cuda", *,
     matrices to ``cfg.dtype`` tensor by tensor (the four float32 recurrent
     leaves excepted) and takes no gradient; a training master keeps every
     leaf float32 with gradients on (the reference's ``init_params``, which
-    its train step casts)."""
+    its train step casts). ``device="meta"`` builds the shapes and dtypes
+    only, allocating nothing (the dry-run's build)."""
     check_supported(cfg)
-    device = resolve_device(device)
-    gen = seed if isinstance(seed, torch.Generator) else \
-        make_generator(seed, device)
+    device = _build_device(device)
+    if isinstance(seed, torch.Generator):
+        gen = seed
+    elif device.type == "meta":
+        gen = _ShapeOnly()
+    else:
+        gen = make_generator(seed, device)
     dtype = torch.float32 if master else cfg.dtype
     d, v = cfg.d_model, cfg.vocab_size
     embed = embed_init(gen, (v, d)).to(dtype)
@@ -313,6 +344,68 @@ def init_params(seed, cfg: ModelConfig, device="cuda", *,
                         torch.zeros((d,), dtype=torch.float32, device=device),
                         layers, encoder)
     return model.requires_grad_(master)
+
+
+def _layer_specs(cfg: ModelConfig, ltype: str, fsdp, model_axis_size: int,
+                 dense_ffn: bool = False) -> dict:
+    """One layer's specs as :func:`_layer_init` nests its modules."""
+    p: dict = {}
+    if ltype in ATTN_TYPES:
+        p["ln1"] = (None,)
+        p["attn"] = attn.attn_specs(fsdp)
+        if ltype == "xattn":
+            p["lnx"] = (None,)
+            p["xattn"] = attn.attn_specs(fsdp)
+        p["ln2"] = (None,)
+        if cfg.moe is not None and not dense_ffn and ltype != "enc_attn":
+            p["moe"] = moe_mod.moe_specs(cfg.moe, model_axis_size, fsdp)
+        else:
+            p["ffn"] = mlp_mod.mlp_specs(cfg.gated_mlp, fsdp)
+    elif ltype == "rglru":
+        p["ln1"] = (None,)
+        p["rglru"] = rglru_mod.rglru_specs(fsdp)
+        p["ln2"] = (None,)
+        p["ffn"] = mlp_mod.mlp_specs(cfg.gated_mlp, fsdp)
+    elif ltype == "mlstm":
+        p["ln"] = (None,)
+        p["mlstm"] = xlstm_mod.mlstm_specs(fsdp)
+    elif ltype == "slstm":
+        p["ln"] = (None,)
+        p["slstm"] = xlstm_mod.slstm_specs(fsdp)
+    return p
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def param_specs(cfg: ModelConfig, fsdp="data",
+                model_axis_size: int = 16) -> dict:
+    """The sharding spec of every parameter, keyed by its
+    :meth:`Transformer.named_parameters` name. ``fsdp`` is the mesh axis
+    (or tuple of axes) that also shards the d_model/d_ff dims (ZeRO-3),
+    ``None`` for the serving layout; the model axis carries heads, d_ff,
+    d_rnn, the vocab or the experts."""
+    check_supported(cfg)
+    specs = {"embed": ("model", fsdp), "head": (fsdp, "model"),
+             "final_norm": (None,)}
+    for i, lt in enumerate(decoder_types(cfg)):
+        specs.update(_flatten(
+            _layer_specs(cfg, lt, fsdp, model_axis_size,
+                         dense_ffn=i < cfg.first_k_dense), f"layers.{i}."))
+    if cfg.n_enc_layers:
+        for i in range(cfg.n_enc_layers):
+            specs.update(_flatten(
+                _layer_specs(cfg, "enc_attn", fsdp, model_axis_size),
+                f"encoder.layers.{i}."))
+        specs["encoder.final_norm"] = (None,)
+    return specs
 
 
 # ======================================================================
@@ -335,66 +428,86 @@ def _cross_attention(p: Block, cfg: ModelConfig, x, ek, ev):
     hx = rms_norm(x, p.lnx)
     dims = cfg.attn_dims()
     b, s = hx.shape[:2]
-    q = attn._project_q_flat(p.xattn, hx).reshape(
-        b, s, dims.n_kv_heads, dims.n_heads // dims.n_kv_heads,
-        dims.head_dim)
+    q = attn._project_q_grouped(p.xattn, hx, dims)
     mask = torch.zeros((1, s, ek.shape[1]), dtype=torch.float32,
                        device=x.device)
     out = attn.gqa_scores_softmax_out(q, ek.to(hx.dtype), ev.to(hx.dtype),
                                       mask)
     out = out.reshape(b, s, dims.n_heads, dims.head_dim)
-    return torch.einsum("bshe,hed->bsd", out, p.xattn.wo.to(hx.dtype))
+    return einsum("bshe,hed->bsd", out, p.xattn.wo.to(hx.dtype),
+                  shard={"b": "batch", "h": "model"})   # row parallel
+
+
+def _join(out, seq_parallel: bool = False):
+    """A sublayer's output in the residual stream's layout: sequence-sharded
+    on the model axis under sequence parallelism (the reference's
+    reduce-scatter), else replicated over it (the reduction GSPMD places
+    for a row-parallel output, which ``DTensor``'s cost model could trade
+    for a reduce-scatter onto another dim). A plain tensor is returned
+    as it is."""
+    return constrain(out, ("batch", "model" if seq_parallel else None, None))
 
 
 def _layer_forward(p: nn.Module, cfg: ModelConfig, ltype: str, x,
-                   positions, enc_kv=None):
+                   positions, enc_kv=None, seq_parallel: bool = False):
     """Full-sequence layer. Returns (x, aux, state): aux is the MoE
     load-balance loss (a float32 zero elsewhere), state the seed of the
     layer's decode cache (an attention layer's rotated (k, v) and, with
     cross-attention, the encoder memory ``enc_kv`` as ``xk``/``xv``; a
     recurrent layer's last state). Only the encoder's ``enc_attn`` is
-    bidirectional."""
+    bidirectional.
+
+    With ``seq_parallel`` (training), the residual stream stays
+    sequence-sharded on the model axis between sublayers (the
+    reference's Megatron-SP): each sublayer gathers its input once and
+    its output is reduce-scattered (these act on ``DTensor``s only)."""
+    def gather_in(h):
+        return constrain(h, ("batch", None, None)) if seq_parallel else h
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ltype in ATTN_TYPES:
         dims = cfg.attn_dims(_window(cfg, ltype))
         out, (k, v) = attn.attention_forward(
-            p.attn, rms_norm(x, p.ln1), positions, dims,
+            p.attn, gather_in(rms_norm(x, p.ln1)), positions, dims,
             causal=ltype != "enc_attn", chunk=cfg.chunk_q,
             return_kv=True, remat=_remat(cfg))
-        x = x + out
+        x = x + _join(out, seq_parallel)
         state = {"k": k, "v": v}
         if ltype == "xattn":
-            x = x + _cross_attention(p, cfg, x, *enc_kv)
+            x = x + _join(_cross_attention(p, cfg, x, *enc_kv),
+                          seq_parallel)
             state["xk"], state["xv"] = enc_kv
-        h = rms_norm(x, p.ln2)
+        h = gather_in(rms_norm(x, p.ln2))
         if p.moe is not None:
             out, aux = moe_mod.moe_forward(p.moe, h, cfg.moe, cfg.activation)
         else:
             out = mlp_mod.mlp_forward(p.ffn, h, cfg.activation)
-        return x + out, aux, state
+        return x + _join(out, seq_parallel), aux, state
     if ltype == "rglru":
-        out, state = rglru_mod.rglru_forward(p.rglru, rms_norm(x, p.ln1))
-        x = x + out
-        x = x + mlp_mod.mlp_forward(p.ffn, rms_norm(x, p.ln2),
-                                    cfg.activation)
+        out, state = rglru_mod.rglru_forward(
+            p.rglru, gather_in(rms_norm(x, p.ln1)))
+        x = x + _join(out, seq_parallel)
+        x = x + _join(mlp_mod.mlp_forward(
+            p.ffn, gather_in(rms_norm(x, p.ln2)), cfg.activation),
+            seq_parallel)
         return x, aux, state
     if ltype == "mlstm":
-        out, state = xlstm_mod.mlstm_forward(p.mlstm, rms_norm(x, p.ln),
-                                             cfg.chunk_q)
-        return x + out, aux, state
+        out, state = xlstm_mod.mlstm_forward(
+            p.mlstm, gather_in(rms_norm(x, p.ln)), cfg.chunk_q)
+        return x + _join(out, seq_parallel), aux, state
     if ltype == "slstm":
-        out, state = xlstm_mod.slstm_forward(p.slstm, rms_norm(x, p.ln),
-                                             cfg.xlstm.n_heads)
-        return x + out, aux, state
+        out, state = xlstm_mod.slstm_forward(
+            p.slstm, gather_in(rms_norm(x, p.ln)), cfg.xlstm.n_heads)
+        return x + _join(out, seq_parallel), aux, state
     raise ValueError(ltype)
 
 
 def _embed(params: Transformer, cfg: ModelConfig, tokens):
     tokens = torch.as_tensor(tokens, device=params.device).long()
-    x = params.embed.to(cfg.dtype)[tokens]
+    x = embedding(params.embed.to(cfg.dtype), tokens)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype)
-    return x
+    return constrain(x, ("batch",) + (None,) * (x.ndim - 1))
 
 
 def _with_prefix(params: Transformer, cfg: ModelConfig, batch: dict):
@@ -454,16 +567,20 @@ def _segments(params: Transformer, cfg: ModelConfig):
 
 
 def _backbone(params: Transformer, cfg: ModelConfig, x, positions,
-              enc_x=None, collect_states: bool = False):
+              enc_x=None, collect_states: bool = False,
+              seq_parallel: bool = True):
     """Run all decoder layers (cross-attending to ``enc_x`` where the
     config has an encoder) and the final norm. Returns (x, the summed aux
-    loss, per-layer states or None)."""
+    loss, per-layer states or None). ``seq_parallel`` as
+    :func:`_layer_forward` (the reference's, off for prefill: prefill
+    saves no residuals, so it would only add gathers)."""
     states = []
 
     def run(span, x, aux, enc_x):
         for p, lt in span:
             enc_kv = _enc_kv(p, enc_x) if lt == "xattn" else None
-            x, a, st = _layer_forward(p, cfg, lt, x, positions, enc_kv)
+            x, a, st = _layer_forward(p, cfg, lt, x, positions, enc_kv,
+                                      seq_parallel)
             aux = aux + a
             if collect_states:
                 states.append(st)
@@ -505,10 +622,11 @@ def train_forward(params: Transformer, cfg: ModelConfig, batch: dict):
 def _nll_block(head, cfg: ModelConfig, xc, tc, mc):
     """Summed NLL of one sequence block. xc (B, cs, D), tc/mc (B, cs);
     ``head`` the (D, V) vocab head."""
-    logits = (xc @ head.to(cfg.dtype)).to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, tc[..., None])[..., 0]
-    return torch.sum((logz - gold) * mc)
+    vocab = ("batch", None, "model")
+    logits = constrain(matmul(xc, head.to(cfg.dtype), n="model")
+                       .to(torch.float32), vocab)
+    logz = logsumexp(logits, dim=-1)
+    return torch.sum((logz - gather_last(logits, tc, vocab)) * mc)
 
 
 def _chunked_nll(params: Transformer, cfg: ModelConfig, x, targets, mask):
@@ -530,7 +648,8 @@ def _chunked_nll(params: Transformer, cfg: ModelConfig, x, targets, mask):
 
 
 def _logits(params: Transformer, cfg: ModelConfig, x_last):
-    return (x_last @ params.head.to(cfg.dtype)).to(torch.float32)
+    return matmul(x_last, params.head.to(cfg.dtype),
+                  n="model").to(torch.float32)
 
 
 # ======================================================================
@@ -585,7 +704,7 @@ def prefill_forward(params: Transformer, cfg: ModelConfig, batch: dict,
     positions = torch.arange(x.shape[1], dtype=torch.float32,
                              device=x.device)
     x, _, states = _backbone(params, cfg, x, positions, enc_x,
-                             collect_states=True)
+                             collect_states=True, seq_parallel=False)
     cache = [_cache_from_state(cfg, st, capacity, ring) for st in states]
     return _logits(params, cfg, x[:, -1]), cache
 
@@ -601,7 +720,7 @@ def decode_step(params: Transformer, cfg: ModelConfig, cache: list,
     for p, lt, st in zip(params.layers, decoder_types(cfg), cache):
         x = _decode_layer(p, cfg, lt, st, x, pos, ring)
     x = rms_norm(x, params.final_norm)
-    return _logits(params, cfg, x[:, 0]), cache
+    return constrain(_logits(params, cfg, x[:, 0]), ("batch", "model")), cache
 
 
 def _overwrite(st: dict, new: dict) -> None:
@@ -620,30 +739,30 @@ def _decode_layer(p: nn.Module, cfg: ModelConfig, lt: str, st: dict, x,
                                           st["k"], st["v"],
                                           cfg.attn_dims(window), ring=ring,
                                           window=window)
-        x = x + out
+        x = x + _join(out)
         if lt == "xattn":
-            x = x + _cross_attention(p, cfg, x, st["xk"], st["xv"])
+            x = x + _join(_cross_attention(p, cfg, x, st["xk"], st["xv"]))
         h = rms_norm(x, p.ln2)
         if p.moe is not None:
-            return x + moe_mod.moe_forward(p.moe, h, cfg.moe,
-                                           cfg.activation)[0]
-        return x + mlp_mod.mlp_forward(p.ffn, h, cfg.activation)
+            return x + _join(moe_mod.moe_forward(p.moe, h, cfg.moe,
+                                                 cfg.activation)[0])
+        return x + _join(mlp_mod.mlp_forward(p.ffn, h, cfg.activation))
     if lt == "rglru":
         out, h, tail = rglru_mod.rglru_decode(p.rglru, rms_norm(x, p.ln1),
                                               st["h"], st["conv"])
         _overwrite(st, {"h": h, "conv": tail})
-        x = x + out
-        return x + mlp_mod.mlp_forward(p.ffn, rms_norm(x, p.ln2),
-                                       cfg.activation)
+        x = x + _join(out)
+        return x + _join(mlp_mod.mlp_forward(p.ffn, rms_norm(x, p.ln2),
+                                             cfg.activation))
     if lt == "mlstm":
         out, new = xlstm_mod.mlstm_decode(p.mlstm, rms_norm(x, p.ln), st)
         _overwrite(st, new)
-        return x + out
+        return x + _join(out)
     if lt == "slstm":
         out, new = xlstm_mod.slstm_decode(p.slstm, rms_norm(x, p.ln), st,
                                           cfg.xlstm.n_heads)
         _overwrite(st, new)
-        return x + out
+        return x + _join(out)
     raise ValueError(lt)
 
 
@@ -685,8 +804,48 @@ def init_cache(cfg: ModelConfig, b: int, capacity: int, device="cuda",
     """A zero decode cache, one dict of buffers a layer: attention ``k``
     and ``v`` (B, capacity, KV, hd) in ``cfg.dtype`` (and ``xk``/``xv``
     (B, enc_len, KV, hd) with cross-attention), recurrent states as the
-    reference's ``_zero_state``."""
+    reference's ``_zero_state``. ``device="meta"`` builds shapes only."""
     check_supported(cfg)
-    device = resolve_device(device)
+    device = _build_device(device)
     return [_zero_state(cfg, lt, b, capacity, enc_len, device)
+            for lt in decoder_types(cfg)]
+
+
+def _state_specs(cfg: ModelConfig, ltype: str, batch_axis, seq_axis,
+                 cache_mode: str = "hd") -> dict:
+    """Specs matching :func:`_zero_state`. ``batch_axis`` shards B (or None
+    when B is too small); ``seq_axis`` optionally shards the cache length
+    (long-context B=1 decode). ``cache_mode``: ``"hd"``, head_dim on the
+    model axis; ``"seq"``, the cache length on the model axis
+    (flash-decoding style; on the data axis too when the batch does not
+    shard)."""
+    if ltype in ATTN_TYPES and ltype != "enc_attn":
+        if cache_mode == "seq":
+            seq_entry = "model" if batch_axis else ("data", "model")
+            s = (batch_axis, seq_entry, None, None)
+        else:
+            s = (batch_axis, seq_axis, None, "model")
+        st = {"k": s, "v": s}
+        if ltype == "xattn":
+            st["xk"] = (batch_axis, None, None, "model")
+            st["xv"] = (batch_axis, None, None, "model")
+        return st
+    if ltype == "rglru":
+        return {"h": (batch_axis, "model"),
+                "conv": (batch_axis, None, "model")}
+    if ltype == "mlstm":
+        return {"c": (batch_axis, None, "model", None),
+                "n": (batch_axis, None, "model"),
+                "m": (batch_axis, None)}
+    if ltype == "slstm":
+        s = (batch_axis, "model")
+        return {"h": s, "c": s, "n": s, "m": s}
+    raise ValueError(ltype)
+
+
+def cache_specs(cfg: ModelConfig, batch_axis, seq_axis=None,
+                cache_mode: str = "hd") -> list:
+    """The specs of :func:`init_cache`'s list, one dict a layer."""
+    check_supported(cfg)
+    return [_state_specs(cfg, lt, batch_axis, seq_axis, cache_mode)
             for lt in decoder_types(cfg)]

@@ -23,6 +23,8 @@ from typing import Mapping, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.models.sharding_ctx import is_dtensor
+
 
 class AdamWConfig(NamedTuple):
     lr: float = 3e-4
@@ -51,6 +53,12 @@ def init_opt_state(params) -> dict:
     return {"m": zeros,
             "v": {n: torch.zeros_like(z) for n, z in zeros.items()},
             "step": 0}
+
+
+def opt_state_specs(params_specs: dict) -> dict:
+    """The moments take their parameters' specs; the step (a host int
+    here, the reference's int32 scalar) is replicated."""
+    return {"m": params_specs, "v": params_specs, "step": ()}
 
 
 def schedule(cfg: AdamWConfig, step: int) -> float:
@@ -100,8 +108,14 @@ def apply_updates(params, grads, state: dict, cfg: AdamWConfig):
     torch._foreach_add_(ms, gs, alpha=1 - cfg.beta1)
     torch._foreach_mul_(vs, cfg.beta2)
     torch._foreach_addcmul_(vs, gs, gs, value=1 - cfg.beta2)
-    # the gradients are spent: their buffers take sqrt(vh) + eps
-    torch._foreach_copy_(gs, vs)
+    # the gradients are spent: their buffers take sqrt(vh) + eps (DTensor
+    # has no strategy for _foreach_copy_: its buffers are zeroed and added
+    # to, 0 + v being v bit for bit)
+    if is_dtensor(gs[0]):
+        torch._foreach_zero_(gs)
+        torch._foreach_add_(gs, vs)
+    else:
+        torch._foreach_copy_(gs, vs)
     torch._foreach_div_(gs, b2c)
     torch._foreach_sqrt_(gs)
     torch._foreach_add_(gs, cfg.eps)
