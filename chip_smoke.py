@@ -195,7 +195,17 @@ Phases (each failure makes the exit code non-zero):
      xlstm-350m train_4k) in 7 subprocesses over fake groups of 256 and
      512 ranks, every cell exiting 0 with its argument bytes the specs'
      sum; (c) the dry-run's live-bytes tracker over phase 13's train step
-     at world size 1, its peak within 25% of the card's.
+     at world size 1, its peak within 25% of the card's;
+ 16. the port's examples: the seven scripts of ``examples/torch`` on the
+     card through their ``main`` at the JAX examples' sizes
+     (``federated_sharded`` in a process of its own, NCCL at world size
+     1), each returned dict held to ``example_failures`` (the limits of
+     ``tests/test_torch_examples.py``) and each example's launches to its
+     row of ``EXAMPLE_KERNELS`` (exactly those entries), with its wall;
+     each entry then held against its plain version, with phase 2's
+     tolerances, on the first inputs of each shape that the example gave
+     it (recorded during the run); then the five deprecated forwarders
+     once each, one ``DeprecationWarning`` and their facades' bits.
 
 The last two lines are the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``. A kernel's ``launches`` there is phase
@@ -205,14 +215,16 @@ does not call it), phase 9 (a)'s out-of-core run with its scoring over
 sources, phase 10's runs (``uplink_async``) and phase 11's
 (``mesh_continual_splitmerge``), phase 12's (``transformer_serving``) and
 phase 13's (``transformer_training_moe``) and phase 14's
-(``transformer_recurrent_encdec``; phase 15 launches none of the five),
-and ``serving_device_launches``
+(``transformer_recurrent_encdec``; phase 15 launches none of the five)
+and phase 16's (``examples``, its seven examples summed), and
+``serving_device_launches``
 the kernel's launches that the profiler saw on the device in phase 8's
 traced runs (one a micro-batch). Without CUDA, or without the repository
 beside it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -388,6 +400,66 @@ def reset_counts():
     kmeans_assign.launches = kmeans_assign.sweep_launches = 0
 
 
+def clear_nearest(x, ct, c2):
+    """Rows whose nearest center is clear: the two nearest more than 1e-4
+    apart in squared distance (elsewhere a tie may go either way); and the
+    squared distances, (B, N, K)."""
+    import torch
+    x2 = (x * x).sum(-1, keepdim=True)
+    dist = torch.clamp(x2 - 2.0 * (x @ ct) + c2.unsqueeze(-2), min=0.0)
+    k = ct.shape[-1]
+    top2 = torch.topk(dist, min(2, k), dim=-1, largest=False).values
+    clear = (top2[..., -1] - top2[..., 0] > 1e-4) if k > 1 else \
+        torch.ones(dist.shape[:-1], dtype=torch.bool, device=x.device)
+    return clear, dist
+
+
+def assign_against_plain(x, ct, c2, idx, d2, shape):
+    """``kmeans_assign``'s (idx, d2) on x (B, N, d) against its plain
+    version: d2 within 1e-4, the labels wherever the nearest center is
+    clear. Returns (max abs err, the plain labels)."""
+    import torch
+    from repro_torch.kernels import ref
+    eidx, ed2 = ref.kmeans_assign_packed(x, ct, c2)
+    err = close(d2, ed2, 1e-4, 1e-4, f"kmeans_assign d2 at {shape}")
+    clear, _ = clear_nearest(x, ct, c2)
+    check(bool(torch.all((idx == eidx) | ~clear)),
+          f"kmeans_assign index mismatch at {shape}")
+    return err, eidx
+
+
+def sweep_against_plain(x, w, ct, c2, got, shape) -> float:
+    """``kmeans_sweep_stats``'s (counts, sums, inertia, idx) against its
+    plain version: the labels wherever the nearest center is clear, and the
+    statistics within 2e-4 of the one-hot formula on the kernel's own
+    labels. Returns the max abs err."""
+    import torch
+    from repro_torch.kernels import ref
+    counts, sums, inertia, idx = got
+    eidx, _ = ref.kmeans_assign_packed(x, ct, c2)
+    clear, dist = clear_nearest(x, ct, c2)
+    check(bool(torch.all((idx == eidx) | ~clear)),
+          f"kmeans_sweep_stats label mismatch at {shape}")
+    lab = idx.long()
+    oh = (lab.unsqueeze(-1) == torch.arange(ct.shape[-1],
+                                            device=x.device)).float() \
+        * w.unsqueeze(-1)
+    d2 = torch.gather(dist, -1, lab.unsqueeze(-1)).squeeze(-1)
+    return max(
+        close(counts, oh.sum(-2), 2e-4, 2e-4,
+              f"kmeans_sweep_stats counts at {shape}"),
+        close(sums, oh.transpose(-1, -2) @ x, 2e-4, 2e-4,
+              f"kmeans_sweep_stats sums at {shape}"),
+        close(inertia, (d2 * w).sum(-1), 2e-4, 2e-4,
+              f"kmeans_sweep_stats inertia at {shape}"))
+
+
+# phase 2's tolerances (tests/test_kernels.py's): (rtol, atol) of each
+# output
+LOGPDF_TOL = (2e-4, 2e-4)
+ESTEP_TOL = [(1e-3, 1e-4), (1e-3, 1e-3), (1e-3, 1e-3), (1e-4, 0.0)]
+
+
 # ----------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ----------------------------------------------------------------------
@@ -416,9 +488,9 @@ def phase_kernels(dev, report):
               f"gmm_log_prob not bit-reproducible at {(n, d, k)}")
         close(out, ref.gmm_logpdf_ref(x, mu, var, lw), 2e-4, 2e-4,
               f"gmm_logpdf vs oracle at {(n, d, k)}")
-        return (close(out, ref.gmm_logpdf_packed(x, a, b, c), 2e-4, 2e-4,
+        return (close(out, ref.gmm_logpdf_packed(x, a, b, c), *LOGPDF_TOL,
                       f"gmm_logpdf vs plain at {(n, d, k)}"),
-                close(lp, ref.gmm_log_prob_packed(x, a, b, c), 2e-4, 2e-4,
+                close(lp, ref.gmm_log_prob_packed(x, a, b, c), *LOGPDF_TOL,
                       f"gmm_log_prob vs plain at {(n, d, k)}"))
 
     def rows_stable(seed):
@@ -462,9 +534,9 @@ def phase_kernels(dev, report):
         got = estep_stats.estep_stats(x, w, a, b, c)
         exp = ref.estep_stats_packed(x, w, a, b, c)
         torch.cuda.synchronize()
-        tol = [(1e-3, 1e-4), (1e-3, 1e-3), (1e-3, 1e-3), (1e-4, 0.0)]
         errs = [close(g, e, rt, at, f"estep_stats[{i}] at {(c_, n, d, k)}")
-                for i, (g, e, (rt, at)) in enumerate(zip(got, exp, tol))]
+                for i, (g, e, (rt, at)) in enumerate(zip(got, exp,
+                                                         ESTEP_TOL))]
         again = estep_stats.estep_stats(x, w, a, b, c)
         check(all(torch.equal(u, v) for u, v in zip(got, again)),
               f"estep_stats not bit-reproducible at {(c_, n, d, k)}")
@@ -490,18 +562,10 @@ def phase_kernels(dev, report):
         c2 = (mu * mu).sum(-1).contiguous()
         got = kmeans_assign.kmeans_sweep_stats(x, w, ct, c2, with_idx=True)
         again = kmeans_assign.kmeans_sweep_stats(x, w, ct, c2, with_idx=True)
-        eidx, _ = ref.kmeans_assign_packed(x, ct, c2)
         torch.cuda.synchronize()
         check(all(torch.equal(u, v) for u, v in zip(got, again)),
               f"kmeans_sweep_stats not bit-reproducible at {(bsz, n, d, k)}")
         counts, sums, inertia, idx = got
-        x2 = (x * x).sum(-1, keepdim=True)
-        dist = torch.clamp(x2 - 2.0 * (x @ ct) + c2.unsqueeze(-2), min=0.0)
-        top2 = torch.topk(dist, min(2, k), dim=-1, largest=False).values
-        clear = (top2[..., -1] - top2[..., 0] > 1e-4) if k > 1 else \
-            torch.ones_like(idx, dtype=torch.bool)
-        check(bool(torch.all((idx == eidx) | ~clear)),
-              f"kmeans_sweep_stats label mismatch at {(bsz, n, d, k)}")
         if k >= 5:
             check(not bool(torch.any(idx >= k - 2)),
                   f"kmeans_sweep_stats sends ties past the first index at "
@@ -509,18 +573,7 @@ def phase_kernels(dev, report):
             check(bool(torch.all(counts[:, k - 3] == 0)),
                   f"kmeans_sweep_stats: the far center is not empty at "
                   f"{(bsz, n, d, k)}")
-        # the one-hot formula on the kernel's own labels
-        lab = idx.long()
-        oh = (lab.unsqueeze(-1) == torch.arange(k, device=dev)).float() \
-            * w.unsqueeze(-1)
-        d2 = torch.gather(dist, -1, lab.unsqueeze(-1)).squeeze(-1)
-        return max(
-            close(counts, oh.sum(-2), 2e-4, 2e-4,
-                  f"kmeans_sweep_stats counts at {(bsz, n, d, k)}"),
-            close(sums, oh.transpose(-1, -2) @ x, 2e-4, 2e-4,
-                  f"kmeans_sweep_stats sums at {(bsz, n, d, k)}"),
-            close(inertia, (d2 * w).sum(-1), 2e-4, 2e-4,
-                  f"kmeans_sweep_stats inertia at {(bsz, n, d, k)}"))
+        return sweep_against_plain(x, w, ct, c2, got, (bsz, n, d, k))
 
     def assign_case(bsz, n, d, k, seed, centers=None):
         """``bsz`` None: one 2-D block through ``ops.kmeans_assign``, as
@@ -535,16 +588,8 @@ def phase_kernels(dev, report):
             idx, d2 = (t[None] for t in ops.kmeans_assign(x[0], mu[0]))
         else:
             idx, d2 = kmeans_assign.kmeans_assign(x, ct, c2)
-        eidx, ed2 = ref.kmeans_assign_packed(x, ct, c2)
         torch.cuda.synchronize()
-        err = close(d2, ed2, 1e-4, 1e-4, f"kmeans_assign d2 at {(n, d, k)}")
-        x2 = (x * x).sum(-1, keepdim=True)
-        dist = torch.clamp(x2 - 2.0 * (x @ ct) + c2.unsqueeze(-2), min=0.0)
-        top2 = torch.topk(dist, min(2, k), dim=-1, largest=False).values
-        clear = (top2[..., -1] - top2[..., 0] > 1e-4) if k > 1 else \
-            torch.ones_like(idx, dtype=torch.bool)
-        check(bool(torch.all((idx == eidx) | ~clear)),
-              f"kmeans_assign index mismatch at {(n, d, k)}")
+        err, eidx = assign_against_plain(x, ct, c2, idx, d2, (n, d, k))
         return err, idx, eidx
 
     errs = {name: 0.0 for name in KERNELS}
@@ -4960,6 +5005,498 @@ def phase_sharding_dryrun(dev, report):
         f"the five); took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ----------------------------------------------------------------------
+# Phase 16: the port's examples
+# ----------------------------------------------------------------------
+
+EXAMPLES_DIR = ROOT / "examples" / "torch"
+# The kernel entries each example's path reaches, from reading the path:
+# every EM iteration is an ``estep_stats``; every fit that starts from
+# k-means (the local fits, the server refit, a central fit, DEM's pilot and
+# fed-kmeans inits) sweeps through ``kmeans_sweep_stats``; scoring through
+# the facade's ``score``/``log_prob``, ``core.metrics`` or the engine (a
+# warm-up and a capture at each install) is a ``gmm_log_prob``; an
+# out-of-core fit's label pass is a ``kmeans_assign``. ``GMM.score``, as
+# the JAX examples' ``GMM.score``, is the plain path: continual_fl scores
+# only through it, so it launches no ``gmm_log_prob``. serve_anomaly's DEM
+# over sources starts from "separated" centers (no k-means), and
+# train_transformer's substrate runs none of the five. An example launches
+# exactly the entries of its row: ``gmm_logpdf`` (the engine's
+# responsibilities mode) is on no example's path.
+EXAMPLE_KERNELS = {
+    "quickstart": ("estep_stats", "kmeans_sweep_stats", "gmm_log_prob"),
+    "anomaly_detection": ("estep_stats", "kmeans_sweep_stats",
+                          "gmm_log_prob"),
+    "continual_fl": ("estep_stats", "kmeans_sweep_stats"),
+    "federated_sharded": ("estep_stats", "kmeans_sweep_stats",
+                          "gmm_log_prob"),
+    "out_of_core": ("estep_stats", "kmeans_sweep_stats", "kmeans_assign",
+                    "gmm_log_prob"),
+    "serve_anomaly": ("estep_stats", "gmm_log_prob"),
+    "train_transformer": (),
+}
+
+
+# examples/anomaly_detection.py's methods on the CPU over 12 seeds (the
+# split of seed 0, the methods' keys of seeds 0-11) at alpha 1 and 2, from
+# ``tools/anomaly_optima.py jax``: each GMM method's avg log-likelihood
+# optima as (lowest, highest) of the runs that reached each, over both
+# alphas; seed 0 gives fedgen 11.758 / 11.753 and central 11.887. The
+# local models' loglik range and every method's AUC-PR range by alpha.
+ANOMALY_OPTIMA = {
+    "fedgen": ((11.3900, 11.3931), (11.7513, 11.7599), (11.8094, 11.8094),
+               (11.8545, 11.8545)),
+    "dem1": ((7.3218, 7.3313), (11.1965, 11.2087), (11.4768, 11.4772)),
+    "dem2": ((11.4230, 11.4325), (11.7885, 11.7972), (11.8853, 11.8855)),
+    "dem3": ((11.4233, 11.4290), (11.7878, 11.7961), (11.8872, 11.8895)),
+    "central": ((11.4267, 11.4267), (11.7878, 11.7949), (11.8840, 11.8888)),
+}
+ANOMALY_LOCAL = {"1": (-28.8519, -25.4157), "2": (8.9259, 9.1304)}
+ANOMALY_AUC = {
+    "1": {"fedgen": (0.9396, 0.9532), "local": (0.7943, 0.8126),
+          "dem1": (0.8961, 0.9541), "dem2": (0.9415, 0.9516),
+          "dem3": (0.9420, 0.9533), "central": (0.9429, 0.9490)},
+    "2": {"fedgen": (0.9267, 0.9569), "local": (0.9316, 0.9439),
+          "dem1": (0.8961, 0.9541), "dem2": (0.9417, 0.9504),
+          "dem3": (0.9425, 0.9488), "central": (0.9429, 0.9490)},
+}
+
+
+def example_failures(name: str, out: dict) -> list:
+    """The limits an example's returned dict is held to, on the card here
+    and on the CPU in ``tests/test_torch_examples.py``: the JAX examples'
+    numbers from a CPU run, exactly where they do not depend on a random
+    draw and within the stated margin where they do (torch's streams are
+    not JAX's). Returns the failed limits."""
+    def near(got, want, margin):
+        return abs(got - want) < margin
+
+    if name == "quickstart":
+        # client sizes [264 111 22 526 240 463 282 214 156 722] (the numpy
+        # split); 1 round, 690 uplink floats of 24,000 raw; federated avg
+        # log-likelihood -8.7026, central -8.6081
+        limits = [
+            ("client sizes", out["client_sizes"] == [
+                264, 111, 22, 526, 240, 463, 282, 214, 156, 722]),
+            ("one round", out["rounds"] == 1),
+            ("690 uplink floats of 24,000",
+             out["uplink_floats"] == 690 and out["raw_floats"] == 24000),
+            ("federated ll within 0.25 of -8.7026",
+             near(out["ll_federated"], -8.7026, 0.25)),
+            ("central ll within 0.05 of -8.6081",
+             near(out["ll_central"], -8.6081, 0.05))]
+    elif name == "continual_fl":
+        # window 3: memory 0 ll_old -408.77, ll_new -3.59; memory 0.6
+        # ll_old -4.66, ll_new -4.00; rounds_total 1, 2, 3, 4
+        forget, keep = out["0.0"][3], out["0.6"][3]
+        limits = [
+            ("rounds_total 1-4", all(
+                [r["rounds_total"] for r in out[m]] == [1, 2, 3, 4]
+                for m in ("0.0", "0.6"))),
+            ("memory 0 loses the old modes (ll_old < -100)",
+             forget["ll_old"] < -100.0),
+            ("memory 0 ll_new within 0.3 of -3.59",
+             near(forget["ll_new"], -3.59, 0.3)),
+            ("memory 0.6 ll_old within 0.3 of -4.66",
+             near(keep["ll_old"], -4.66, 0.3)),
+            ("memory 0.6 ll_new within 0.3 of -4.00",
+             near(keep["ll_new"], -4.00, 0.3))]
+    elif name == "out_of_core":
+        # mmap fit -5.354 over 60,000 rows; concat fit bit-identical;
+        # FedGenGMM over sources -5.360 with |S| = 1,800 replayed; replay
+        # score -5.387 over 10,000,000 virtual rows
+        limits = [
+            ("concat fit bit-identical", out["concat_bit_identical"] is True),
+            ("60,000 rows, 10,000,000 replayed",
+             out["rows"] == 60000 and out["replay_rows"] == 10_000_000),
+            ("|S| = 1,800 from a SyntheticGMMSource",
+             out["synthetic_rows"] == 1800
+             and out["synthetic_kind"] == "SyntheticGMMSource"),
+            ("mmap ll within 0.02 of -5.354",
+             near(out["ll_mmap"], -5.354, 0.02)),
+            ("fedgen ll within 0.05 of -5.360",
+             near(out["ll_fedgen"], -5.360, 0.05)),
+            ("replay ll within 0.1 of -5.387",
+             near(out["ll_replay"], -5.387, 0.1))]
+    elif name == "anomaly_detection":
+        # EM on this data lands in one of a few optima by its draw, in the
+        # reference as in the port (ANOMALY_OPTIMA): each method's loglik
+        # within 0.02 of one of the reference's optima and its AUC-PR
+        # within 0.01 of the reference's range; the local models' loglik
+        # within 0.5 of the reference's range at that alpha
+        limits = []
+        for alpha, res in out.items():
+            limits.append((f"alpha {alpha}: six methods", sorted(res) == [
+                "central", "dem1", "dem2", "dem3", "fedgen", "local"]))
+            limits.append((f"alpha {alpha}: fedgen one round",
+                           res["fedgen"]["rounds"] == 1))
+            for method, optima in ANOMALY_OPTIMA.items():
+                ll = res[method]["loglik"]
+                limits.append((
+                    f"alpha {alpha}: {method} loglik {ll} within 0.02 of "
+                    f"one of the reference's optima {optima}",
+                    any(lo - 0.02 <= ll <= hi + 0.02 for lo, hi in optima)))
+            lo, hi = ANOMALY_LOCAL[alpha]
+            limits.append((f"alpha {alpha}: local loglik within 0.5 of "
+                           f"{lo}..{hi}", lo - 0.5 <= res["local"]["loglik"]
+                           <= hi + 0.5))
+            for method, (lo, hi) in ANOMALY_AUC[alpha].items():
+                limits.append((
+                    f"alpha {alpha}: {method} AUC-PR within 0.01 of "
+                    f"{lo}..{hi}", lo - 0.01 <= res[method]["auc_pr"]
+                    <= hi + 0.01))
+    elif name == "federated_sharded":
+        # FedGenGMM -5.7552; DEM 4 rounds, -5.7491; central -5.7491
+        limits = [
+            ("world size 1", out["world_size"] == 1),
+            ("fedgen ll within 0.05 of -5.7552",
+             near(out["ll_fedgen"], -5.7552, 0.05)),
+            ("DEM 1-10 rounds", 1 <= out["dem_rounds"] <= 10),
+            ("DEM ll within 0.01 of -5.7491",
+             near(out["ll_dem"], -5.7491, 0.01)),
+            ("central ll within 0.01 of -5.7491",
+             near(out["ll_central"], -5.7491, 0.01))]
+    elif name == "serve_anomaly":
+        # (its wrapper's protocol members spelled out; as is, it waits for
+        # ever on Python 3.12) 390 batches over versions 1-9; ID score 7.14
+        # and OOD 1133.89 under v9
+        limits = [
+            ("every published version served in order",
+             out["versions"] == list(range(1, out["published"] + 1))
+             and out["batch_versions"] == sorted(out["batch_versions"])),
+            ("a swap happened", out["published"] >= 2),
+            ("the last model served", out["final_version"]
+             == out["published"]),
+            ("ID score within 1.0 of 7.14", near(out["id_score"], 7.14, 1.0)),
+            ("OOD score within 10% of 1133.89",
+             near(out["ood_score"], 1133.89, 113.389))]
+    elif name == "train_transformer":
+        # 6.223 -> 3.496 in 200 steps
+        limits = [
+            ("first loss within 0.1 of 6.223",
+             near(out["loss_first"], 6.223, 0.1)),
+            ("the loss falls by 0.5 or more",
+             out["loss_last"] < out["loss_first"] - 0.5),
+            ("a checkpoint written", bool(out["checkpoint_files"]))]
+    else:
+        raise KeyError(name)
+    return [what for what, ok in limits if not ok]
+
+
+def load_example(name: str):
+    """``examples/torch/<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"torch_example_{name}", EXAMPLES_DIR / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# Where the port's code reaches each kernel entry: ``ops`` binds every entry
+# at import, and the serving engine calls the log-density entries through
+# their module. (entry, module, attribute)
+ENTRY_SITES = (("estep_stats", "ops", "_estep_kernel"),
+               ("gmm_log_prob", "ops", "_log_prob_kernel"),
+               ("gmm_logpdf", "ops", "_logpdf_kernel"),
+               ("kmeans_assign", "ops", "_assign_kernel"),
+               ("kmeans_sweep_stats", "ops", "_sweep_kernel"),
+               ("gmm_log_prob", "gmm_logpdf", "gmm_log_prob"),
+               ("gmm_logpdf", "gmm_logpdf", "gmm_logpdf"))
+
+
+@contextlib.contextmanager
+def recording_inputs(store: dict):
+    """Within it, the first arguments of each shape that each kernel entry
+    is given are copied into ``store``, from any thread, as {(entry,
+    shapes): args}. A call made while its stream captures a graph is not
+    recorded (the serving engine runs the same shapes just before it
+    captures)."""
+    import importlib
+    import threading
+    import torch
+    lock = threading.Lock()
+
+    def recorder(entry, fn):
+        def call(*args, **kw):
+            key = (entry,) + tuple(tuple(a.shape) for a in args
+                                   if isinstance(a, torch.Tensor))
+            if key not in store and \
+                    not torch.cuda.is_current_stream_capturing():
+                copy = tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                             for a in args)
+                with lock:
+                    store.setdefault(key, copy)
+            return fn(*args, **kw)
+        return call
+
+    saved = []
+    try:
+        for entry, module, attr in ENTRY_SITES:
+            mod = importlib.import_module(f"repro_torch.kernels.{module}")
+            saved.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, recorder(entry, saved[-1][2]))
+        yield store
+    finally:
+        for mod, attr, fn in reversed(saved):
+            setattr(mod, attr, fn)
+
+
+def hold_recorded(store: dict, launches: dict, what: str) -> dict:
+    """Each kernel entry against its plain version at the shapes that
+    ``recording_inputs`` kept, one launch a shape: phase 2's inputs
+    (``model_inputs``) of that shape under the recorded row weights (of
+    the entries that take them), with
+    phase 2's tolerances (the examples' own parameters are not used: a
+    component fitted to a few rows sits at the variance floor, where two
+    f32 orders of its packed logits may differ by far more). The entries
+    recorded must be the entries launched. Returns {entry: [shapes, max abs
+    err]}."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import estep_stats, gmm_logpdf, kmeans_assign
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import pack_params
+    recorded = sorted({key[0] for key in store})
+    launched = sorted(k for k, v in launches.items() if v)
+    check(recorded == launched, f"{what}: shapes recorded for {recorded}, "
+          f"launches of {launched}")
+    held: dict = {}
+    for i, ((entry, *shapes), args) in enumerate(sorted(store.items(),
+                                                        key=str)):
+        shape = f"{what}'s {tuple(shapes)}"
+        dev, w = args[0].device, args[1]
+        rng = np.random.default_rng(900 + i)
+        if entry in ("gmm_log_prob", "gmm_logpdf"):
+            (n, d), k = shapes[0], shapes[-1][-1]
+            x, mu, var, lw = model_inputs(rng, n, d, k, dev)
+            a, b, c = pack_params(mu, var, lw)
+            kern, plain = ((gmm_logpdf.gmm_log_prob, ref.gmm_log_prob_packed)
+                           if entry == "gmm_log_prob" else
+                           (gmm_logpdf.gmm_logpdf, ref.gmm_logpdf_packed))
+            err = close(kern(x, a, b, c), plain(x, a, b, c), *LOGPDF_TOL,
+                        f"{entry} vs plain at {shape}")
+        else:
+            (bsz, n, d), k = shapes[0], shapes[-1][-1]
+            x, mu, var, lw = model_inputs(rng, n, d, k, dev, batch=bsz)
+            if entry == "estep_stats":
+                a, b, c = pack_params(mu, var, lw)
+                err = max(close(g, e, rt, at,
+                                f"estep_stats[{j}] at {shape}")
+                          for j, (g, e, (rt, at)) in enumerate(zip(
+                              estep_stats.estep_stats(x, w, a, b, c),
+                              ref.estep_stats_packed(x, w, a, b, c),
+                              ESTEP_TOL)))
+            else:
+                ct = mu.transpose(-1, -2).contiguous()
+                c2 = (mu * mu).sum(-1).contiguous()
+                if entry == "kmeans_assign":
+                    idx, d2 = kmeans_assign.kmeans_assign(x, ct, c2)
+                    err = assign_against_plain(x, ct, c2, idx, d2, shape)[0]
+                else:
+                    got = kmeans_assign.kmeans_sweep_stats(x, w, ct, c2,
+                                                           with_idx=True)
+                    err = sweep_against_plain(x, w, ct, c2, got, shape)
+        n_shapes, worst = held.get(entry, (0, 0.0))
+        held[entry] = [n_shapes + 1, max(worst, err)]
+    torch.cuda.synchronize()
+    return held
+
+
+def example_in_process(name: str, argv):
+    """(returned dict, printed lines, launches, wall s, each entry held
+    against its plain version on the inputs it was given) of one example
+    run through its ``main`` in this process."""
+    import io
+    import torch
+    mod = load_example(name)
+    buf = io.StringIO()
+    inputs: dict = {}
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), recording_inputs(inputs):
+        out = mod.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    return (out, buf.getvalue().splitlines(), launches, wall,
+            hold_recorded(inputs, launches, name))
+
+
+EXAMPLE_SUBPROCESS = """
+import contextlib, io, json, sys
+sys.path.insert(0, {src!r})
+import chip_smoke
+mod = chip_smoke.load_example({name!r})
+buf = io.StringIO()
+inputs = {{}}
+with contextlib.redirect_stdout(buf), chip_smoke.recording_inputs(inputs):
+    out = mod.main({argv!r})
+launches = chip_smoke.kernel_counts()
+held = chip_smoke.hold_recorded(inputs, launches, {name!r})
+print(json.dumps({{"out": out, "lines": buf.getvalue().splitlines(),
+                  "launches": launches, "held": held}}))
+"""
+
+
+def example_in_subprocess(name: str, argv, timeout: float = 300.0):
+    """The same, with the example in a process of its own (it makes and
+    destroys its own process group): the process prints its dict, lines,
+    launches and holds as one JSON line."""
+    code = EXAMPLE_SUBPROCESS.format(src=str(SRC), name=name,
+                                     argv=list(argv))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=str(ROOT),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{name} exited {proc.returncode}: "
+          f"{stderr.strip()[-3000:]}")
+    got = json.loads(stdout.strip().splitlines()[-1])
+    return got["out"], got["lines"], got["launches"], wall, got["held"]
+
+
+def forwarder_pairs(x, shards, device: str) -> dict:
+    """{name: (forwarder call, facade call, the replacement its warning
+    names)} of the five deprecated forwarders, with the knobs of
+    ``tests/test_api.py``'s ``TestDeprecationShims``, on rows ``x`` and the
+    per-client sources ``shards``; ``tests/test_torch_shims.py`` runs them
+    on the CPU."""
+    from repro_torch.api import DEM, FedGenGMM, FitConfig, GMMEstimator
+    from repro_torch.core import (dem_from_sources, fedgengmm_from_sources,
+                                  federated_kmeans,
+                                  federated_kmeans_from_sources,
+                                  fit_gmm_streaming,
+                                  train_locals_from_sources,
+                                  train_locals_sources_cfg)
+    d = device
+    return {
+        "fit_gmm_streaming": (
+            lambda: fit_gmm_streaming(0, x, 3, chunk_size=256, device=d),
+            lambda: GMMEstimator(3, chunk_size=256, device=d).fit(
+                x, seed=0).result_, "GMMEstimator"),
+        "fedgengmm_from_sources": (
+            lambda: fedgengmm_from_sources(1, shards, k_clients=2,
+                                           k_global=2, h=20, chunk_size=256,
+                                           device=d),
+            lambda: FedGenGMM(k_clients=2, k_global=2, h=20, chunk_size=256,
+                              device=d).run(shards, seed=1), "FedGenGMM"),
+        "dem_from_sources": (
+            lambda: dem_from_sources(2, shards, 2, init=1, max_rounds=10,
+                                     chunk_size=256, device=d),
+            lambda: DEM(2, init="separated", max_iter=10, chunk_size=256,
+                        device=d).run(shards, seed=2), "DEM"),
+        "train_locals_from_sources": (
+            lambda: train_locals_from_sources(3, shards, k=2, max_iter=5,
+                                              device=d),
+            lambda: train_locals_sources_cfg(
+                3, shards, FitConfig.from_legacy(max_iter=5, device=d),
+                k=2), "FedGenGMM"),
+        "federated_kmeans_from_sources": (
+            lambda: federated_kmeans_from_sources(4, shards, 2, max_iter=5,
+                                                  device=d),
+            lambda: federated_kmeans(4, list(shards), 2, max_iter=5,
+                                     device=d), "federated_kmeans"),
+    }
+
+
+def result_tensors(out) -> list:
+    """Every tensor and number of a result, in order (a number as a 0-d
+    CPU tensor): GMMs, named tuples, lists and dicts walked; what holds
+    none (a ledger, a source) gives none."""
+    import torch
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if hasattr(out, "means") and hasattr(out, "covs"):
+        return [out.weights, out.means, out.covs]
+    if hasattr(out, "_fields"):
+        return [t for f in out._fields
+                for t in result_tensors(getattr(out, f))]
+    if isinstance(out, dict):
+        return [t for k in sorted(out) for t in result_tensors(out[k])]
+    if isinstance(out, (list, tuple)):
+        return [t for o in out for t in result_tensors(o)]
+    if isinstance(out, (bool, int, float)):
+        return [torch.tensor(float(out))]
+    return []
+
+
+def forwarders_on_card(dev):
+    """Each deprecated forwarder once on the card: one DeprecationWarning
+    that names it and its replacement, and its facade's bits."""
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch.data import ArraySource
+
+    rng = np.random.default_rng(4)
+    mus = rng.normal(0, 5.0, (3, 3))
+    x = (mus[rng.integers(0, 3, 900)]
+         + rng.normal(0, 0.5, (900, 3))).astype(np.float32)
+    shards = [ArraySource(x[:250]), ArraySource(x[250:610]),
+              ArraySource(x[610:])]
+    reset_counts()
+    for name, (old, new, replacement) in forwarder_pairs(
+            x, shards, dev.type).items():
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            got = old()
+        dep = [w for w in caught
+               if issubclass(w.category, DeprecationWarning)]
+        check(len(dep) == 1 and name in str(dep[0].message)
+              and replacement in str(dep[0].message),
+              f"{name}: {[str(w.message) for w in dep]} (one "
+              f"DeprecationWarning naming it and {replacement} expected)")
+        a, b = result_tensors(got), result_tensors(new())
+        check(len(a) == len(b) > 0
+              and all(u.device.type == dev.type for u in a if u.ndim)
+              and all(torch.equal(u, v) for u, v in zip(a, b)),
+              f"{name} differs from its facade on the card")
+    log(f"phase 16: the five forwarders on the card: one DeprecationWarning "
+        f"each and their facades' bits; launches {kernel_counts()}")
+
+
+def phase_examples(dev, report):
+    """Phase 16: the seven examples of ``examples/torch`` on the card
+    through their ``main`` (federated_sharded in a process of its own:
+    phase 11 held this process's group), each held to its limits, its
+    launches to its row of EXAMPLE_KERNELS and each entry it launched to
+    the entry's plain version on the inputs it gave it; then the five
+    deprecated forwarders."""
+    t_phase = time.perf_counter()
+    argv = ["--device", dev.type]
+    total = dict.fromkeys(kernel_counts(), 0)
+    for name in EXAMPLE_KERNELS:
+        run = (example_in_subprocess if name == "federated_sharded"
+               else example_in_process)
+        out, lines, launches, wall, held = run(name, argv)
+        for line in lines:
+            if not line.startswith("step "):   # the trainer's step log
+                log(f"phase 16 [{name}]: {line}")
+        failed = example_failures(name, out)
+        check(not failed, f"{name}: outside its limits: {failed}; {out}")
+        launched = sorted(k for k, v in launches.items() if v)
+        check(launched == sorted(EXAMPLE_KERNELS[name]), f"{name}: "
+              f"launched {launched}, not {sorted(EXAMPLE_KERNELS[name])}")
+        for k, v in launches.items():
+            total[k] += v
+        log(f"phase 16: {name} took {wall:.2f} s; launches {launches}; "
+            f"held against the plain versions at its shapes (phase 2's "
+            f"inputs), [shapes, max abs err] {held}")
+    for entry in report.get("kernels", []):
+        entry["launches_by_path"]["examples"] = total[entry["name"]]
+    forwarders_on_card(dev)
+    log(f"phase 16: examples' launches {total}; took "
+        f"{time.perf_counter() - t_phase:.1f} s on {card_line()}")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: the repository (src/repro_torch) is not beside "
@@ -5010,7 +5547,8 @@ def main() -> int:
               ("transformer training and MoE", phase_training_moe),
               ("recurrent, xLSTM and encoder-decoder families",
                phase_recurrent_encdec),
-              ("sharding context, mesh and dry-run", phase_sharding_dryrun)]
+              ("sharding context, mesh and dry-run", phase_sharding_dryrun),
+              ("examples", phase_examples)]
     for name, fn in phases:
         if failures:
             log(f"skipping phase {name!r} after a failure")

@@ -11,7 +11,7 @@
 
 Every name here is also a name of ``repro.api``.
 """
-from repro_torch.core.config import FitConfig
+from repro_torch.core.config import DEFAULT_SOURCE_CHUNK, FitConfig
 from repro_torch.core.privacy import DPConfig
 from repro_torch.api.estimators import (DEM, FedEM, FedGenGMM, FedKMeans,
                                         GMMEstimator, KMeansEstimator, bic,
@@ -20,4 +20,4 @@ from repro_torch.api.serving import Scorer
 
 __all__ = ["FitConfig", "DPConfig", "GMMEstimator", "KMeansEstimator", "FedGenGMM",
            "DEM", "FedEM", "FedKMeans", "fit_federated", "score",
-           "log_prob", "bic", "Scorer"]
+           "log_prob", "bic", "Scorer", "DEFAULT_SOURCE_CHUNK"]

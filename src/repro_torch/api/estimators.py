@@ -251,12 +251,15 @@ class GMMEstimator:
         return self.gmm_
 
     def score(self, data, sample_weight=None) -> torch.Tensor:
+        """Average log-likelihood of ``data`` under the fitted model."""
         return score(self._fitted(), data, sample_weight, self.config)
 
     def log_prob(self, data) -> torch.Tensor:
+        """Per-row log density ``(N,)`` of ``data`` under the fitted model."""
         return log_prob(self._fitted(), data, self.config)
 
     def bic(self, data, sample_weight=None) -> torch.Tensor:
+        """Bayesian information criterion of the fitted model on ``data``."""
         return bic(self._fitted(), data, sample_weight, self.config)
 
 
@@ -374,6 +377,7 @@ class FedGenGMM:
 
     @property
     def global_gmm_(self) -> GMM:
+        """The fitted global model (after :meth:`run`)."""
         if self.result_ is None:
             raise RuntimeError("runner has no result; call run() first")
         return self.result_.global_gmm
@@ -411,6 +415,7 @@ class DEM:
 
     @property
     def global_gmm_(self) -> GMM:
+        """The fitted global model (after :meth:`run`)."""
         if self.result_ is None:
             raise RuntimeError("runner has no result; call run() first")
         return self.result_.global_gmm
@@ -462,6 +467,7 @@ class FedEM:
 
     @property
     def global_gmm_(self) -> GMM:
+        """The fitted global model (after :meth:`run`)."""
         if self.result_ is None:
             raise RuntimeError("runner has no result; call run() first")
         return self.result_.global_gmm
@@ -495,6 +501,7 @@ class FedKMeans:
 
     @property
     def centers_(self) -> torch.Tensor:
+        """The fitted global centers ``(k, d)`` (after :meth:`run`)."""
         if self.result_ is None:
             raise RuntimeError("runner has no result; call run() first")
         return self.result_.centers

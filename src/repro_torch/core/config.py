@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -259,6 +259,28 @@ class FitConfig:
 
     def resolve_device(self) -> torch.device:
         return resolve_device(self.device)
+
+    def resolved_for(self, algorithm: str) -> "FitConfig":
+        """A config with tol and max_iter made concrete for one algorithm
+        ("em" or "kmeans"), so an "auto" config and its resolved twin
+        compare equal."""
+        return self.replace(tol=self.resolve_tol(algorithm),
+                            max_iter=self.resolve_max_iter(algorithm))
+
+    def resolved_backend(self, fused_supported: bool = True) -> str:
+        """The concrete backend on the config's own device (raises where
+        that device is "cuda" and there is no card)."""
+        return resolve_backend(self.backend, self.resolve_device(),
+                               fused_supported)
+
+    def resolved_estep(self, is_diagonal: Optional[bool] = None) -> str:
+        """The E-step's concrete backend on the config's device; the fused
+        kernel takes diagonal covariance only (``is_diagonal`` defaults to
+        the config's covariance type)."""
+        if is_diagonal is None:
+            is_diagonal = self.is_diagonal
+        return resolve_estep_backend(self.backend, is_diagonal,
+                                     self.resolve_device())
 
     @property
     def is_diagonal(self) -> bool:

@@ -22,7 +22,8 @@ draw from the port's generators, not threefry.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+import warnings
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -339,3 +340,25 @@ def dem(seed: int, split, k: int, init=3, max_rounds: int = 200,
         covariance_type=covariance_type, reg_covar=reg_covar, tol=tol,
         max_iter=max_rounds, init=_legacy_init_name(init), device=device)
     return dem_cfg(seed, split, cfg, k)
+
+
+def dem_from_sources(seed: int, sources: Sequence[DataSource], k: int,
+                     init=1, max_rounds: int = 200, tol: float = 1e-3,
+                     reg_covar: float = 1e-6, estep_backend: str = "auto",
+                     chunk_size: Optional[int] = None,
+                     covariance_type: str = "diag",
+                     device="cuda") -> DEMResult:
+    """Deprecated: ``repro_torch.api.DEM(k).run(sources)`` dispatches on
+    the input type, so the separate ``_from_sources`` spelling is obsolete.
+    This shim forwards to the facade (the facade's bits) and will be
+    removed."""
+    warnings.warn(
+        "dem_from_sources is deprecated; use repro_torch.api.DEM(k).run("
+        "sources) — same engine, same bits",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch.api import DEM  # the facade sits above core
+    runner = DEM(k, config=FitConfig.from_legacy(
+        backend=estep_backend, chunk_size=chunk_size,
+        covariance_type=covariance_type, reg_covar=reg_covar, tol=tol,
+        max_iter=max_rounds, init=_legacy_init_name(init), device=device))
+    return runner.run(list(sources), seed=seed)

@@ -24,6 +24,7 @@ source reduction is the model's (``gmm.device``), or the config's.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
@@ -707,6 +708,28 @@ def fit_gmm(seed, x, k: int, sample_weight=None,
         covariance_type=covariance_type, reg_covar=reg_covar, tol=tol,
         max_iter=max_iter, device=device)
     return fit_gmm_cfg(seed, x, k, cfg, sample_weight, init_gmm)
+
+
+def fit_gmm_streaming(seed: int, x, k: int, sample_weight=None,
+                      covariance_type: str = "diag", max_iter: int = 200,
+                      tol: float = 1e-3, reg_covar: float = 1e-6,
+                      init_gmm: Optional[GMM] = None,
+                      estep_backend: str = "auto", chunk_size: int = 4096,
+                      device="cuda") -> EMResult:
+    """Deprecated: ``repro_torch.api.GMMEstimator`` with an integer
+    ``FitConfig.chunk_size`` is the same all-streaming fit. This shim
+    forwards to the facade (the facade's bits) and will be removed."""
+    warnings.warn(
+        "fit_gmm_streaming is deprecated; use repro_torch.api.GMMEstimator("
+        "k, chunk_size=<int>).fit(x) — same engine, same bits",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch.api import GMMEstimator  # the facade sits above core
+    est = GMMEstimator(k, config=FitConfig.from_legacy(
+        backend=estep_backend, chunk_size=int(chunk_size),
+        covariance_type=covariance_type, reg_covar=reg_covar, tol=tol,
+        max_iter=max_iter, device=device))
+    est.fit(x, sample_weight=sample_weight, init_gmm=init_gmm, seed=seed)
+    return est.result_
 
 
 def fit_gmm_bic_cfg(seed: int, x, k_candidates: Sequence[int],

@@ -24,6 +24,7 @@ release, the whole budget spent in this one round.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -140,6 +141,31 @@ def train_locals_sources_cfg(seed: int, sources: Sequence[DataSource],
             res, _ = fit_gmm_bic_cfg(sub, src, k_candidates, config)
         results.append(res)
     return results
+
+
+def train_locals_from_sources(seed: int, sources: Sequence[DataSource],
+                              k: Optional[int] = None,
+                              k_candidates: Optional[Sequence[int]] = None,
+                              max_iter: int = 200, tol: float = 1e-3,
+                              reg_covar: float = 1e-6,
+                              covariance_type: str = "diag",
+                              estep_backend: str = "auto",
+                              chunk_size: Optional[int] = None,
+                              device="cuda") -> list[EMResult]:
+    """Deprecated: the per-client out-of-core local fits are the source arm
+    of :func:`train_locals_sources_cfg`, which ``repro_torch.api.FedGenGMM``
+    drives. This shim forwards (the same bits) and will be removed."""
+    warnings.warn(
+        "train_locals_from_sources is deprecated; use "
+        "repro_torch.api.FedGenGMM(...).run(sources) for the full pipeline "
+        "or train_locals_sources_cfg with a FitConfig — same engine, same "
+        "bits", DeprecationWarning, stacklevel=2)
+    cfg = FitConfig.from_legacy(
+        backend=estep_backend, chunk_size=chunk_size,
+        covariance_type=covariance_type, reg_covar=reg_covar, tol=tol,
+        max_iter=max_iter, device=device)
+    return train_locals_sources_cfg(seed, sources, cfg, k=k,
+                                    k_candidates=k_candidates)
 
 
 SYNTHETIC_MODES = ("resident", "source")
@@ -317,3 +343,33 @@ def fedgengmm(seed: int, split, k_clients: Optional[int] = None,
     return fedgengmm_cfg(seed, split, cfg, k_clients=k_clients,
                          k_global=k_global, k_candidates=k_candidates, h=h,
                          synthetic=synthetic)
+
+
+def fedgengmm_from_sources(seed: int, sources: Sequence[DataSource],
+                           k_clients: Optional[int] = None,
+                           k_global: Optional[int] = None,
+                           k_candidates: Optional[Sequence[int]] = None,
+                           h: int = 100, max_iter: int = 200,
+                           tol: float = 1e-3, reg_covar: float = 1e-6,
+                           covariance_type: str = "diag",
+                           estep_backend: str = "auto",
+                           chunk_size: Optional[int] = None,
+                           synthetic: str = "source",
+                           device="cuda") -> FedGenResult:
+    """Deprecated: ``repro_torch.api.FedGenGMM(...).run(sources)``
+    dispatches on the input type, so the separate ``_from_sources``
+    spelling is obsolete. This shim forwards to the facade (the facade's
+    bits) and will be removed."""
+    warnings.warn(
+        "fedgengmm_from_sources is deprecated; use "
+        "repro_torch.api.FedGenGMM(k_clients=..., k_global=...).run("
+        "sources) — same engine, same bits",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch.api import FedGenGMM  # the facade sits above core
+    fed = FedGenGMM(k_clients=k_clients, k_global=k_global,
+                    k_candidates=k_candidates, h=h, synthetic=synthetic,
+                    config=FitConfig.from_legacy(
+                        backend=estep_backend, chunk_size=chunk_size,
+                        covariance_type=covariance_type, reg_covar=reg_covar,
+                        tol=tol, max_iter=max_iter, device=device))
+    return fed.run(list(sources), seed=seed)

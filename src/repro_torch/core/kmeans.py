@@ -26,13 +26,15 @@ Out-of-core data runs through the source twins: ``kmeans_plusplus_streaming``
 """
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 
 from repro_torch.core.config import (FitConfig, derive_seed, is_source_list,
                                      make_generator, require_array_weights,
-                                     resolve_backend, resolve_source_chunk)
+                                     resolve_backend, resolve_device,
+                                     resolve_source_chunk)
 from repro_torch.core.em import (SufficientStats, _weights, _select,
                                  reduce_rows, streaming_map_reduce,
                                  streaming_reduce)
@@ -431,6 +433,27 @@ def federated_kmeans(seed: int, client_data, k_global: int,
     return res.centers
 
 
+def federated_kmeans_from_sources(seed: int,
+                                  sources: Sequence[DataSource],
+                                  k_global: int,
+                                  k_local: Optional[int] = None,
+                                  max_iter: int = 100,
+                                  chunk_size: Optional[int] = None,
+                                  assign_backend: str = "auto",
+                                  device="cuda") -> torch.Tensor:
+    """Deprecated: :func:`federated_kmeans` dispatches on its input type,
+    so a list of sources goes straight in. This shim forwards (the same
+    bits) and will be removed."""
+    warnings.warn(
+        "federated_kmeans_from_sources is deprecated; pass the list of "
+        "DataSources directly to repro_torch.core.kmeans.federated_kmeans "
+        "— same engine, same bits",
+        DeprecationWarning, stacklevel=2)
+    return federated_kmeans(seed, list(sources), k_global, k_local=k_local,
+                            max_iter=max_iter, chunk_size=chunk_size,
+                            assign_backend=assign_backend, device=device)
+
+
 def lloyd_round_stats(centers: torch.Tensor, x,
                       sample_weight: Optional[torch.Tensor] = None,
                       assign_backend: str = "auto",
@@ -518,7 +541,7 @@ def kmeans_plusplus_streaming(seed: int, source: DataSource, k: int,
     The running best scores and rows stay on the device, the first block
     winning ties; nothing is read by the host."""
     chunk_size = resolve_source_chunk(chunk_size)
-    device = torch.device(device)
+    device = resolve_device(device)
     dtype = source.dtype
     b = 1 if n_init is None else int(n_init)
     centers = torch.zeros((b, k, source.dim), dtype=dtype, device=device)
@@ -602,7 +625,7 @@ def kmeans_source(seed: int, source: DataSource, k: int,
     chunk_size = resolve_source_chunk(chunk_size)
     if init_centers is not None:
         device = init_centers.device
-    device = torch.device(device)
+    device = resolve_device(device)
     backend = resolve_backend(assign_backend, device)
     if init_centers is None:
         centers = kmeans_plusplus_streaming(seed, source, k, chunk_size,
@@ -643,7 +666,7 @@ def kmeans_multi_source(seed: int, source: DataSource, k: int,
         return kmeans_source(seed, source, k, max_iter, tol, chunk_size,
                              assign_backend, device=device)
     chunk_size = resolve_source_chunk(chunk_size)
-    device = torch.device(device)
+    device = resolve_device(device)
     backend = resolve_backend(assign_backend, device)
     centers = kmeans_plusplus_streaming(seed, source, k, chunk_size, device,
                                         n_init=n_init)

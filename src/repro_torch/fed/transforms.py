@@ -102,15 +102,25 @@ class PayloadTransform(Protocol):
     - ``epsilon_per_round() -> float``: the privacy budget a round spends.
     """
 
-    def traced(self) -> Any: ...
+    def traced(self) -> Any:
+        """Sweepable numeric knobs as a tuple of scalars."""
+        ...
 
-    def apply(self, key, params, payload, idx, members, draws=None): ...
+    def apply(self, key, params, payload, idx, members, draws=None):
+        """Transform ONE client's uplink payload."""
+        ...
 
-    def finish(self, total): ...
+    def finish(self, total):
+        """Server-side inverse on the reduced total (before combine)."""
+        ...
 
-    def wire_itemsize(self, itemsize: int) -> int: ...
+    def wire_itemsize(self, itemsize: int) -> int:
+        """Bytes per uplink element after the transform (ledger feed)."""
+        ...
 
-    def epsilon_per_round(self) -> float: ...
+    def epsilon_per_round(self) -> float:
+        """Privacy budget one round spends (0 for non-DP transforms)."""
+        ...
 
 
 # ----------------------------------------------------------------------
@@ -204,18 +214,23 @@ class Identity:
     seed: int = dataclasses.field(default=0, compare=False)
 
     def traced(self):
+        """No sweepable knobs: an empty tuple."""
         return ()
 
     def apply(self, key, params, payload, idx, members, draws=None):
+        """Return the payload unchanged."""
         return payload
 
     def finish(self, total):
+        """Return the reduced total unchanged."""
         return total
 
     def wire_itemsize(self, itemsize: int) -> int:
+        """The payload dtype is untouched."""
         return itemsize
 
     def epsilon_per_round(self) -> float:
+        """No privacy budget is spent."""
         return 0.0
 
 
@@ -262,12 +277,15 @@ class GaussianDP:
                 float(self.min_count))
 
     def epsilon_per_round(self) -> float:
+        """Budget spent per realized round: ``epsilon / rounds``."""
         return float(self.epsilon) / float(self.rounds)
 
     def wire_itemsize(self, itemsize: int) -> int:
+        """Noise does not change the payload dtype."""
         return itemsize
 
     def finish(self, total):
+        """Value-level transform: the summed total needs no decoding."""
         return total
 
     def apply(self, key, params, payload, idx, members, draws=None):
@@ -351,15 +369,20 @@ class StochasticQuantize:
                 f"bits must be 8 or 16 (int8/int16 wire), got {self.bits}")
 
     def traced(self):
+        """No sweepable knobs: an empty tuple."""
         return ()
 
     def epsilon_per_round(self) -> float:
+        """Quantization spends no privacy budget."""
         return 0.0
 
     def wire_itemsize(self, itemsize: int) -> int:
+        """The wire carries ``bits``-bit integers: 1 or 2 bytes an element."""
         return self.bits // 8
 
     def finish(self, total):
+        """Dequantization happened per client; the float sum is the decoded
+        aggregate."""
         return total
 
     def apply(self, key, params, payload, idx, members, draws=None):
@@ -426,9 +449,11 @@ class PairwiseMask:
                 f"fp_bits must be in [0, 30], got {self.fp_bits}")
 
     def traced(self):
+        """No sweepable knobs: an empty tuple."""
         return ()
 
     def epsilon_per_round(self) -> float:
+        """Masking spends no privacy budget."""
         return 0.0
 
     def wire_itemsize(self, itemsize: int) -> int:
@@ -526,16 +551,21 @@ class Compose:
 
     @property
     def additive_only(self) -> bool:
+        """True when any member only makes sense under a summed aggregate
+        (e.g. :class:`PairwiseMask`)."""
         return any(getattr(t, "additive_only", False)
                    for t in self.transforms)
 
     def traced(self):
+        """The members' knobs, in pipeline order."""
         return tuple(t.traced() for t in self.transforms)
 
     def epsilon_per_round(self) -> float:
+        """Per-round budget spends add across the stages."""
         return sum(t.epsilon_per_round() for t in self.transforms)
 
     def wire_itemsize(self, itemsize: int) -> int:
+        """Fold the per-stage dtype changes; the last change wins."""
         for t in self.transforms:
             itemsize = t.wire_itemsize(itemsize)
         return itemsize
@@ -548,6 +578,7 @@ class Compose:
         return payload
 
     def finish(self, total):
+        """Undo the member encodings right to left."""
         for tr in reversed(self.transforms):
             total = tr.finish(total)
         return total

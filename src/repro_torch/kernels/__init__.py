@@ -11,3 +11,11 @@ kernels in ``repro.kernels``).
 * ``ref``: the plain PyTorch versions;
 * ``_build``: builds ``csrc/*.cu`` with nvcc at first use.
 """
+from repro_torch.kernels import (estep_stats, gmm_logpdf, kmeans_assign, ops,
+                                 ref)
+
+# The names of ``repro.kernels.__all__``. ``estep_stats``, ``gmm_logpdf`` and
+# ``kmeans_assign`` stay bound to the launch-wrapper modules (with their
+# ``launches`` counts); the model-level functions of those names are
+# ``ops.estep_stats``, ``ops.gmm_logpdf`` and ``ops.kmeans_assign``.
+__all__ = ["estep_stats", "gmm_logpdf", "kmeans_assign", "ref", "ops"]

@@ -203,7 +203,14 @@ class ScoringEngine:
         """Capture :meth:`_score` as the installed model's CUDA graph, after
         one warm-up call on a side stream (it loads the kernel library and
         sets the kernel's shared-memory limit, neither of which a capture
-        may do first)."""
+        may do first).
+
+        The capture is thread-local: a trainer thread that keeps fitting on
+        the card while a new round is installed (allocating, syncing,
+        launching on its own stream) must not invalidate it. Under the
+        default "global" mode such a call from another thread breaks the
+        capture (``cudaErrorStreamCaptureInvalidated``); the captured work
+        is this thread's capture stream alone either way."""
         global captures
         t0 = time.perf_counter()
         stream = torch.cuda.current_stream(self.device)
@@ -213,7 +220,7 @@ class ScoringEngine:
             self._score()
         stream.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             out = self._score()
         self._graph, self._out = graph, out
         captures += 1

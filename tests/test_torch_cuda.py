@@ -387,6 +387,48 @@ class TestServingOnCard:
         eng.install(g_b, 2)
         assert serve_engine.captures == captures + 2 and eng.version == 2
 
+    def test_install_while_another_thread_computes(self):
+        """A swap's capture while another thread allocates, launches and
+        syncs on the card (a trainer publishing rounds): every capture
+        holds, and the replays give the eager step's bits. The other thread
+        draws from a generator of its own, as the port's fits do: a capture
+        registers the default CUDA generator, and a draw from it in another
+        thread during the capture raises in that thread."""
+        import threading
+        rng = np.random.default_rng(42)
+        models = [GMM(*(t(a).cuda() for a in serving_model(rng, 6, 8)))
+                  for _ in range(2)]
+        eng = ScoringEngine(models[0], ScoreConfig(mode="anomaly", slots=2,
+                                                   rows_per_slot=256))
+        stop, errors = threading.Event(), []
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+
+        def busy():
+            try:
+                n = 1
+                while not stop.is_set():
+                    a = torch.randn(1024 * n, 64, device="cuda",
+                                    generator=gen)
+                    float((a @ a.T[:, :64]).sum())      # alloc, GEMM, sync
+                    n = n % 32 + 1
+            except Exception as exc:                   # pragma: no cover
+                errors.append(exc)
+
+        worker = threading.Thread(target=busy)
+        worker.start()
+        try:
+            for i in range(40):
+                eng.install(models[i % 2], i)
+                eng.submit(ScoreRequest(i, rng.normal(0, 2, (300, 8))))
+                (res,) = eng.drain()
+                assert torch.equal(eng._out, eng._score())
+        finally:
+            stop.set()
+            worker.join(timeout=60)
+        assert not worker.is_alive()
+        assert not errors, errors
+
     def test_responsibilities_launch_gmm_logpdf(self):
         rng = np.random.default_rng(41)
         w, mu, var = serving_model(rng, 30, 24)

@@ -44,6 +44,24 @@ def test_no_file_imports_jax_or_repro():
     assert not bad, bad
 
 
+EXAMPLES = PKG.parents[1] / "examples" / "torch"
+
+
+def test_examples_import_only_the_port_torch_numpy_and_the_stdlib():
+    """``examples/torch/*.py`` import ``repro_torch``, ``torch``, ``numpy``
+    and the standard library, never JAX, the JAX package or the JAX
+    package's benchmarks."""
+    files = sorted(EXAMPLES.glob("*.py"))
+    assert len(files) == 7
+    allowed = {"repro_torch", "torch", "numpy"} | set(sys.stdlib_module_names)
+    bad = []
+    for f in files:
+        for mod in _imported_modules(ast.parse(f.read_text(), str(f))):
+            if mod.split(".")[0] not in allowed:
+                bad.append(f"{f.name}: {mod}")
+    assert not bad, bad
+
+
 def test_imports_with_jax_blocked():
     names = [m.name for m in pkgutil.walk_packages([str(PKG)], "repro_torch.")]
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None"

@@ -2,8 +2,11 @@
 CPU: each shim folds its loose knobs into one ``FitConfig`` with
 ``FitConfig.from_legacy`` (``chunk_size=None`` meaning "auto", as in
 ``repro/core/config.py``) and gives the core's bits under that config. The
-deprecated ``fit_gmm_streaming`` and the ``*_from_sources`` shims are not
-ported; the facades take sources directly."""
+five deprecated forwarders (``fit_gmm_streaming`` and the four
+``*_from_sources``) give their facade's bits and warn exactly once, as
+``tests/test_api.py``'s ``TestDeprecationShims`` holds the JAX package's."""
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -17,7 +20,9 @@ from repro_torch.core.fedgen import (aggregate, aggregate_cfg, fedgengmm,
                                      train_locals_bic, train_locals_bic_cfg,
                                      train_locals_cfg)
 from repro_torch.core.gmm import GMM
+from repro_torch.core.kmeans import federated_kmeans_from_sources
 from repro_torch.core.partition import partition
+from repro_torch.data.sources import ArraySource
 
 from conftest import planted_gmm_data
 
@@ -117,3 +122,83 @@ def test_from_legacy_folds_chunk_none_to_auto():
                                 device="cpu")
     assert cfg == CFG.replace(reg_covar=1e-6)
     assert FitConfig.from_legacy(chunk_size=256).chunk_size == 256
+
+
+# ----------------------------------------------------------------------
+# The deprecated forwarders: the facade's bits, one DeprecationWarning
+# ----------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def shards(data):
+    """Three ragged per-client sources of the planted rows."""
+    x, _ = data
+    return [ArraySource(x[:250]), ArraySource(x[250:610]),
+            ArraySource(x[610:])]
+
+
+def _chip_smoke():
+    """``chip_smoke.py``, which holds the forwarder table that its phase 16
+    runs on the card."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_forwarders",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+SMOKE = _chip_smoke()
+
+
+FORWARDERS = ["fit_gmm_streaming", "fedgengmm_from_sources",
+              "dem_from_sources", "train_locals_from_sources",
+              "federated_kmeans_from_sources"]
+
+
+@pytest.mark.parametrize("name", FORWARDERS)
+def test_forwarder_gives_the_facade_bits_and_warns_once(data, shards, name):
+    x, _ = data
+    old, new, replacement = SMOKE.forwarder_pairs(x, shards, "cpu")[name]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got = old()
+    dep = [w for w in caught if issubclass(w.category, DeprecationWarning)]
+    assert len(dep) == 1, [str(w.message) for w in dep]
+    assert name in str(dep[0].message)
+    assert replacement in str(dep[0].message)
+    assert dep[0].filename == SMOKE.__file__    # blamed on the caller
+    exp = new()
+    a, b = SMOKE.result_tensors(got), SMOKE.result_tensors(exp)
+    assert len(a) == len(b) > 0
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    if hasattr(got, "comm"):
+        assert got.comm == exp.comm
+
+
+@pytest.mark.parametrize("name", FORWARDERS)
+def test_forwarder_asked_for_cuda_without_a_card_raises(data, shards, name):
+    """No silent fallback: the forwarders' default device is cuda."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from repro_torch.core import (dem_from_sources, fedgengmm_from_sources,
+                                  fit_gmm_streaming,
+                                  train_locals_from_sources)
+    x, _ = data
+    calls = {
+        "fit_gmm_streaming": lambda: fit_gmm_streaming(0, x, 3),
+        "fedgengmm_from_sources": lambda: fedgengmm_from_sources(
+            0, shards, k_clients=2, k_global=2),
+        "dem_from_sources": lambda: dem_from_sources(0, shards, 2),
+        "train_locals_from_sources": lambda: train_locals_from_sources(
+            0, shards, k=2),
+        "federated_kmeans_from_sources":
+            lambda: federated_kmeans_from_sources(0, shards, 2),
+    }
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        with pytest.raises(RuntimeError, match="cuda"):
+            calls[name]()
