@@ -32,6 +32,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.config import (FitConfig, is_source, is_source_list,
                                      require_array_weights)
 from repro_torch.core.dem import DEMResult, _resolve_init, dem_cfg
@@ -366,13 +367,15 @@ class FedGenGMM:
     def run(self, clients, *, seed: Optional[int] = None) -> FedGenResult:
         """Run over a ``ClientSplit`` (numpy, from either package's
         ``partition``), :class:`SplitClients`, or a list of per-client
-        DataSources."""
+        DataSources. The run is one ``api.run`` span
+        (``repro_torch.tracing``)."""
         _classify(clients, "FedGenGMM.run", ("split", "sources"))
         seed = self.config.seed if seed is None else seed
-        self.result_ = fedgengmm_cfg(seed, clients, self.config,
-                                     self.k_clients, self.k_global,
-                                     self.k_candidates, self.h,
-                                     self.synthetic, self.transform)
+        with tracing.span("api.run"):
+            self.result_ = fedgengmm_cfg(seed, clients, self.config,
+                                         self.k_clients, self.k_global,
+                                         self.k_candidates, self.h,
+                                         self.synthetic, self.transform)
         return self.result_
 
     @property
@@ -405,12 +408,14 @@ class DEM:
     def run(self, clients, *, seed: Optional[int] = None) -> DEMResult:
         """Run distributed EM to convergence (or ``max_iter`` rounds) over
         a padded ``ClientSplit`` or a list of per-client DataSources
-        ("auto" init is then "separated"; "pilot" raises)."""
+        ("auto" init is then "separated"; "pilot" raises). The run is one
+        ``api.run`` span (``repro_torch.tracing``)."""
         _classify(clients, "DEM.run", ("split", "sources"))
         seed = self.config.seed if seed is None else seed
-        self.result_ = dem_cfg(seed, clients, self.config, self.k,
-                               transform=self.transform,
-                               async_policy=self.async_policy)
+        with tracing.span("api.run"):
+            self.result_ = dem_cfg(seed, clients, self.config, self.k,
+                                   transform=self.transform,
+                                   async_policy=self.async_policy)
         return self.result_
 
     @property

@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.config import (FitConfig, derive_seed, is_source_list,
                                      make_generator, resolve_device)
 from repro_torch.core.em import (e_step_stats, fit_gmm_cfg, init_from_means,
@@ -147,12 +148,14 @@ def fed_kmeans_centers(seed: int, clients, k: int,
                        assign_backend: str = "auto") -> torch.Tensor:
     """Init 3: one-shot federated k-means global centers over resident
     clients (``SplitClients``: data and mask tensors on the device; or
-    ``ShardedClients``, each rank's block with one all-gather)."""
-    return federated_kmeans(seed, clients.data, k,
-                            client_weights=clients.mask,
-                            chunk_size=chunk_size,
-                            assign_backend=assign_backend,
-                            sharded=_sharded(clients))
+    ``ShardedClients``, each rank's block with one all-gather). The
+    ``kmeans.init`` span."""
+    with tracing.span("kmeans.init"):
+        return federated_kmeans(seed, clients.data, k,
+                                client_weights=clients.mask,
+                                chunk_size=chunk_size,
+                                assign_backend=assign_backend,
+                                sharded=_sharded(clients))
 
 
 # ----------------------------------------------------------------------
@@ -244,8 +247,8 @@ class DEMStrategy:
 
     def state_from_gmm(self, gmm0: GMM) -> DEMState:
         """Round-0 state around an externally built initial model."""
-        neg_inf = torch.tensor(float("-inf"), dtype=gmm0.means.dtype,
-                               device=gmm0.device)
+        neg_inf = tracing.blocking(lambda: torch.tensor(
+            float("-inf"), dtype=gmm0.means.dtype, device=gmm0.device))
         return self._make_state(gmm0, neg_inf, neg_inf, float(self.tol),
                                 float(self.reg_covar))
 

@@ -29,6 +29,7 @@ from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.config import (FitConfig, derive_seed,
                                      require_array_weights, resolve_backend,
                                      resolve_estep_backend,
@@ -504,12 +505,14 @@ def init_from_kmeans(seed: int, x: torch.Tensor, k: int,
                                               covariance_type, backend),
             x, cs, res.centers.device)
         return m_step(stats, reg_covar)
-    w = _weights(x, sample_weight)
-    res = kmeans_multi(seed, x, k, sample_weight=w, max_iter=50,
-                       chunk_size=chunk_size, assign_backend=assign_backend)
-    stats = label_stats(x, res.assignments, k, w, covariance_type,
-                        chunk_size)
-    return m_step(stats, reg_covar)
+    with tracing.span("kmeans.init"):
+        w = _weights(x, sample_weight)
+        res = kmeans_multi(seed, x, k, sample_weight=w, max_iter=50,
+                           chunk_size=chunk_size,
+                           assign_backend=assign_backend)
+        stats = label_stats(x, res.assignments, k, w, covariance_type,
+                            chunk_size)
+        return m_step(stats, reg_covar)
 
 
 def _moments_block(xb: torch.Tensor, wb: torch.Tensor):
@@ -577,24 +580,29 @@ def _em_loop(gmm0: GMM, x: torch.Tensor, w: torch.Tensor, tol: float,
     active while ``it < max_iter`` and its |Δ avg-loglik| > ``tol``; once
     it stops, its state is frozen, exactly as the vmapped ``while_loop``
     freezes it. Reading ``active.any()`` syncs the device once per
-    iteration.
+    iteration. The loop is the ``em.loop`` span, which notes its
+    iterations (the members' largest ``n_iter``) as ``iters``.
     """
     def step(gmm):
         return em_step(gmm, x, w, reg_covar, backend, chunk_size)
 
-    gmm, ll = step(gmm0)
-    prev_ll = torch.full_like(ll, float("-inf"))
-    it = torch.ones(ll.shape, dtype=torch.int64, device=ll.device)
-    active = (it < max_iter) & (torch.abs(ll - prev_ll) > tol)
-    while bool(active.any()):
-        new_gmm, avg_ll = step(gmm)
-        gmm = GMM(*(_select(active, n, o) for n, o in
-                    zip((new_gmm.weights, new_gmm.means, new_gmm.covs),
-                        (gmm.weights, gmm.means, gmm.covs))))
-        prev_ll = torch.where(active, ll, prev_ll)
-        ll = torch.where(active, avg_ll, ll)
-        it = it + active.to(it.dtype)
+    with tracing.span("em.loop"):
+        gmm, ll = step(gmm0)
+        prev_ll = torch.full_like(ll, float("-inf"))
+        it = torch.ones(ll.shape, dtype=torch.int64, device=ll.device)
         active = (it < max_iter) & (torch.abs(ll - prev_ll) > tol)
+        iters = 1
+        while tracing.blocking(bool, active.any()):
+            new_gmm, avg_ll = step(gmm)
+            gmm = GMM(*(_select(active, n, o) for n, o in
+                        zip((new_gmm.weights, new_gmm.means, new_gmm.covs),
+                            (gmm.weights, gmm.means, gmm.covs))))
+            prev_ll = torch.where(active, ll, prev_ll)
+            ll = torch.where(active, avg_ll, ll)
+            it = it + active.to(it.dtype)
+            active = (it < max_iter) & (torch.abs(ll - prev_ll) > tol)
+            iters += 1
+        tracing.note("iters", iters)
     converged = torch.abs(ll - prev_ll) <= tol
     return gmm, ll, it, converged
 

@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.config import (FitConfig, derive_seed, is_source_list,
                                      make_generator)
 from repro_torch.core.em import (EMResult, bic_streaming, fit_gmm_bic_cfg,
@@ -55,8 +56,10 @@ def train_locals_cfg(seed: int, data: torch.Tensor, mask: torch.Tensor,
                      k: int, config: FitConfig) -> EMResult:
     """Local EM of every client at once, fixed K_c = k: data (C, N, d)
     padded, mask (C, N). Client c draws from ``derive_seed(seed, c)``.
-    Returns the stacked :class:`EMResult` (leaves with leading dim C)."""
-    return fit_gmm_cfg(seed, data, k, config, sample_weight=mask)
+    Returns the stacked :class:`EMResult` (leaves with leading dim C).
+    The ``fedgen.locals`` span."""
+    with tracing.span("fedgen.locals"):
+        return fit_gmm_cfg(seed, data, k, config, sample_weight=mask)
 
 
 def train_locals(seed: int, data, mask, k: int, max_iter: int = 200,
@@ -182,25 +185,30 @@ def aggregate_cfg(seed: int, local_gmms: list[GMM], sizes,
     on the device; ``"source"`` replays a :class:`SyntheticGMMSource` of the
     merged mixture, regenerated block by block (cached on the device up to
     its ``cache_rows``), so the server's memory does not grow with H or the
-    number of clients. Returns the refit and S (tensor or source)."""
+    number of clients. Returns the refit and S (tensor or source). The
+    ``fedgen.server`` span, with merge and S in ``fedgen.sample``."""
     if synthetic not in SYNTHETIC_MODES:
         raise ValueError(f"synthetic must be 'resident' or 'source', "
                          f"got {synthetic!r}")
-    merged = merge_gmms(local_gmms, sizes)
-    n_synth = h * sum(g.n_components for g in local_gmms)
-    if synthetic == "source":
-        s = SyntheticGMMSource(merged, n_synth, derive_seed(seed, "sample"),
-                               device=merged.device)
-    else:
-        gen = make_generator(derive_seed(seed, "sample"), merged.device)
-        s = merged.sample(gen, n_synth)
-    if k_global is not None:
-        res = fit_gmm_cfg(derive_seed(seed, "fit"), s, k_global, config)
-    else:
-        if k_candidates is None:
-            raise ValueError("need k_global or k_candidates")
-        res, _ = fit_gmm_bic_cfg(derive_seed(seed, "fit"), s, k_candidates,
-                                 config)
+    with tracing.span("fedgen.server"):
+        with tracing.span("fedgen.sample"):
+            merged = merge_gmms(local_gmms, sizes)
+            n_synth = h * sum(g.n_components for g in local_gmms)
+            if synthetic == "source":
+                s = SyntheticGMMSource(merged, n_synth,
+                                       derive_seed(seed, "sample"),
+                                       device=merged.device)
+            else:
+                gen = make_generator(derive_seed(seed, "sample"),
+                                     merged.device)
+                s = merged.sample(gen, n_synth)
+        if k_global is not None:
+            res = fit_gmm_cfg(derive_seed(seed, "fit"), s, k_global, config)
+        else:
+            if k_candidates is None:
+                raise ValueError("need k_global or k_candidates")
+            res, _ = fit_gmm_bic_cfg(derive_seed(seed, "fit"), s,
+                                     k_candidates, config)
     return res, s
 
 

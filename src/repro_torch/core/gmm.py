@@ -22,6 +22,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch import tracing
+
 LOG_2PI = 1.8378770664093453
 
 
@@ -166,8 +168,8 @@ def merge_gmms(gmms: list[GMM], dataset_sizes) -> GMM:
     Clients may have different numbers of components.
     """
     device = gmms[0].means.device
-    sizes = torch.as_tensor(dataset_sizes, dtype=torch.float32,
-                            device=device)
+    sizes = tracing.blocking(lambda: torch.as_tensor(
+        dataset_sizes, dtype=torch.float32, device=device))
     total = sizes.sum()
     ws = [g.weights * (s / total) for g, s in zip(gmms, sizes)]
     w = torch.cat(ws)

@@ -31,6 +31,7 @@ from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.config import (FitConfig, derive_seed, is_source_list,
                                      make_generator, require_array_weights,
                                      resolve_backend, resolve_device,
@@ -150,9 +151,10 @@ def _member_seeds(seed: Seed, b: int) -> list[int]:
 def _uniforms(seeds, stage: str, shape: tuple, device) -> torch.Tensor:
     """(B, *shape) float64 uniforms in [0, 1), member b from its own
     generator."""
-    return torch.stack([
+    u = torch.stack([
         torch.rand(shape, generator=make_generator(derive_seed(s, stage)),
-                   dtype=torch.float64) for s in seeds]).to(device)
+                   dtype=torch.float64) for s in seeds])
+    return tracing.blocking(u.to, device)
 
 
 def _categorical(p: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -192,7 +194,8 @@ def _subsample(seeds, stage: str, x: torch.Tensor, w: torch.Tensor,
     idx = torch.stack([
         torch.randint(0, n, (rows,),
                       generator=make_generator(derive_seed(s, stage)))
-        for s in seeds]).to(x.device)
+        for s in seeds])
+    idx = tracing.blocking(idx.to, x.device)
     return (torch.gather(x, 1, idx.unsqueeze(-1).expand(-1, -1, d)),
             torch.gather(w, 1, idx))
 
@@ -200,10 +203,12 @@ def _subsample(seeds, stage: str, x: torch.Tensor, w: torch.Tensor,
 def _seed_centers(seeds, x: torch.Tensor, w: torch.Tensor, k: int,
                   seed_rows: int) -> torch.Tensor:
     """k-means++ over a uniform row subsample once N exceeds
-    ``seed_rows``; over every row below that."""
-    if x.shape[1] > seed_rows:
-        x, w = _subsample(seeds, "seed-rows", x, w, seed_rows)
-    return _kmeanspp(x, w, k, _uniforms(seeds, "kmeans++", (k,), x.device))
+    ``seed_rows``; over every row below that (the ``kmeans.seed`` span)."""
+    with tracing.span("kmeans.seed"):
+        if x.shape[1] > seed_rows:
+            x, w = _subsample(seeds, "seed-rows", x, w, seed_rows)
+        return _kmeanspp(x, w, k,
+                         _uniforms(seeds, "kmeans++", (k,), x.device))
 
 
 def kmeans_plusplus(seed: Seed, x: torch.Tensor, k: int,
@@ -228,42 +233,45 @@ def _lloyd(x: torch.Tensor, w: torch.Tensor, centers: torch.Tensor,
     """Batched Lloyd's algorithm from ``centers`` (B, k, d): each member
     sweeps while ``it < max_iter`` and its squared center shift > ``tol``.
     Assignments, inertia and sizes come from a final sweep against the
-    returned centers."""
-    def sweep_stats(c):
-        return reduce_rows(lambda xb, wb: _update_block(xb, wb, c, backend),
-                           (x, w), chunk_size)
+    returned centers. The whole call is one ``kmeans.lloyd`` span."""
+    with tracing.span("kmeans.lloyd"):
+        def sweep_stats(c):
+            return reduce_rows(
+                lambda xb, wb: _update_block(xb, wb, c, backend), (x, w),
+                chunk_size)
 
-    b = x.shape[0]
-    it = torch.zeros(b, dtype=torch.int64, device=x.device)
-    shift = torch.full((b,), float("inf"), dtype=x.dtype, device=x.device)
-    active = (it < max_iter) & (shift > tol)
-    while bool(active.any()):
-        counts, sums = sweep_stats(centers)
-        cnt = counts.unsqueeze(-1)
-        new = torch.where(cnt > 0, sums / torch.clamp(cnt, min=1e-12),
-                          centers)
-        new_shift = torch.sum((new - centers) ** 2, dim=(-1, -2))
-        centers = _select(active, new, centers)
-        shift = torch.where(active, new_shift, shift)
-        it = it + active.to(it.dtype)
+        b = x.shape[0]
+        it = torch.zeros(b, dtype=torch.int64, device=x.device)
+        shift = torch.full((b,), float("inf"), dtype=x.dtype,
+                           device=x.device)
         active = (it < max_iter) & (shift > tol)
+        while tracing.blocking(bool, active.any()):
+            counts, sums = sweep_stats(centers)
+            cnt = counts.unsqueeze(-1)
+            new = torch.where(cnt > 0, sums / torch.clamp(cnt, min=1e-12),
+                              centers)
+            new_shift = torch.sum((new - centers) ** 2, dim=(-1, -2))
+            centers = _select(active, new, centers)
+            shift = torch.where(active, new_shift, shift)
+            it = it + active.to(it.dtype)
+            active = (it < max_iter) & (shift > tol)
 
-    def block(xb, wb):
-        if backend == "fused":
-            from repro_torch.kernels import ops
-            counts, _, inertia, idx = ops.kmeans_sweep(xb, wb, centers,
-                                                       with_idx=True)
-            return (counts, inertia), (idx,)
-        idx, d2 = _assign_block(xb, centers)
-        oh = _labels_onehot(idx, centers.shape[-2], wb, xb.dtype)
-        return ((oh.sum(dim=-2), torch.sum(d2 * wb, dim=-1)), (idx,))
+        def block(xb, wb):
+            if backend == "fused":
+                from repro_torch.kernels import ops
+                counts, _, inertia, idx = ops.kmeans_sweep(
+                    xb, wb, centers, with_idx=True)
+                return (counts, inertia), (idx,)
+            idx, d2 = _assign_block(xb, centers)
+            oh = _labels_onehot(idx, centers.shape[-2], wb, xb.dtype)
+            return ((oh.sum(dim=-2), torch.sum(d2 * wb, dim=-1)), (idx,))
 
-    if chunk_size is None:
-        (counts, inertia), (assign,) = block(x, w)
-    else:
-        (counts, inertia), (assign,) = streaming_map_reduce(block, (x, w),
-                                                            chunk_size)
-    return KMeansResult(centers, assign, inertia, it, counts)
+        if chunk_size is None:
+            (counts, inertia), (assign,) = block(x, w)
+        else:
+            (counts, inertia), (assign,) = streaming_map_reduce(
+                block, (x, w), chunk_size)
+        return KMeansResult(centers, assign, inertia, it, counts)
 
 
 def _lower(res: KMeansResult) -> KMeansResult:
@@ -325,8 +333,9 @@ def kmeans_multi(seed: Seed, x: torch.Tensor, k: int,
         xs, ws, pilot_chunk = x, w, chunk_size
     xr = xs.repeat_interleave(n_init, dim=0)
     wr = ws.repeat_interleave(n_init, dim=0)
-    u = _uniforms(seeds, "pilot", (n_init, k), x.device).reshape(-1, k)
-    centers = _kmeanspp(xr, wr, k, u)
+    with tracing.span("kmeans.seed"):
+        u = _uniforms(seeds, "pilot", (n_init, k), x.device).reshape(-1, k)
+        centers = _kmeanspp(xr, wr, k, u)
     inertia = torch.full((b * n_init,), float("inf"), dtype=x.dtype,
                          device=x.device)
     for _ in range(pilot_iters):

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import tracing
 from repro_torch.core.config import (derive_seed, is_source_list,
                                      resolve_device)
 from repro_torch.core.em import (_tree_add, _tree_leaves, _tree_map,
@@ -107,7 +108,8 @@ def _reduce_block(local_step, state, data, mask, lo: int, population: int,
     # a block that owns no member steps its first client as a cohort of one
     run, members = ((ids, members) if len(ids) else
                     (np.asarray([lo]), np.asarray([lo])))
-    idx = torch.as_tensor(run, dtype=torch.int64, device=data.device)
+    idx = tracing.blocking(lambda: torch.as_tensor(
+        run, dtype=torch.int64, device=data.device))
     if cohort is None:
         p = local_step(state, data, mask, idx)
     else:
@@ -384,7 +386,7 @@ def make_backend(clients, device, mesh=None, axis: str = "data"):
     ``data``/``mask``/``sizes`` arrays, such as
     ``repro_torch.core.partition.ClientSplit``) is copied onto ``device``,
     and a list of per-client DataSources becomes :class:`SourceClients` on
-    ``device``."""
+    ``device``. The padded split's copy is the ``fed.upload`` span."""
     if mesh is not None:
         if isinstance(clients, ShardedClients):
             return clients
@@ -402,7 +404,8 @@ def make_backend(clients, device, mesh=None, axis: str = "data"):
         return SplitClients(data, mask, clients.sizes, clients.split)
     if all(hasattr(clients, f) for f in ("data", "mask", "sizes")):
         from repro_torch.convert import split_to_clients
-        return split_to_clients(clients, device)
+        with tracing.span("fed.upload"):
+            return split_to_clients(clients, device)
     raise TypeError(f"federated clients must be a ClientSplit, "
                     f"SplitClients or a non-empty list of DataSources, got "
                     f"{type(clients).__name__}")
@@ -558,15 +561,17 @@ def run_rounds(strategy, clients, *, seed: int = 0, device="cuda",
             cohort, weights = _cohort_and_weights(sampler, stragglers,
                                                   backend, rnd)
             tkey = None if transform is None else uplink_key(transform, rnd)
-            return _round(strategy, state, backend, cohort, weights,
-                          transform, tparams, tkey)
+            with tracing.span("fed.round"):
+                return _round(strategy, state, backend, cohort, weights,
+                              transform, tparams, tkey)
 
         state = one_round(state0, 0)
         rounds = 1
-        while rounds < max_rounds and bool(_keep_going(strategy, state)):
+        while rounds < max_rounds and tracing.blocking(
+                bool, _keep_going(strategy, state)):
             state = one_round(state, rounds)
             rounds += 1
-        converged = bool(strategy.converged(state))
+        converged = tracing.blocking(bool, strategy.converged(state))
         post = getattr(strategy, "post_rounds", None)
         if post is not None:
             state = post(state, backend)
