@@ -22,7 +22,7 @@ from torch import nn
 
 from repro_torch.core.config import resolve_device
 from repro_torch.core.gmm import GMM
-from repro_torch.fed.runtime import SplitClients
+from repro_torch.fed.runtime import split_to_clients  # noqa: F401
 from repro_torch.models.attention import Attention
 from repro_torch.models.mlp import MLP
 from repro_torch.models.moe import MoE
@@ -50,15 +50,6 @@ def gmm_to_numpy(gmm: GMM) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(weights, means, covs) of a port model as numpy arrays."""
     return tuple(t.detach().cpu().numpy()
                  for t in (gmm.weights, gmm.means, gmm.covs))
-
-
-def split_to_clients(split, device="cuda") -> SplitClients:
-    """A padded split (``data (C, N, d)``, ``mask (C, N)``, ``sizes (C,)``
-    numpy arrays, as ``partition`` makes them in either package) as
-    :class:`SplitClients` on ``device``, which keeps ``split``."""
-    return SplitClients(_tensor(split.data, device),
-                        _tensor(split.mask, device), np.asarray(split.sizes),
-                        split)
 
 
 def _cast(a, dtype, device) -> torch.Tensor:

@@ -188,9 +188,12 @@ def _pad_rows(xb: torch.Tensor, target: int) -> torch.Tensor:
 
 
 class _PinnedRing:
-    """``slots`` pinned host buffers of one padded block each, with the
-    event of each buffer's last host-to-device copy. A buffer is refilled
-    only once that copy has completed."""
+    """``slots`` pinned host buffers of one shape and dtype, with the event
+    of each buffer's last host-to-device copy. A buffer is refilled only
+    once that copy has completed. The buffers come from PyTorch's caching
+    host allocator, so a ring made again pays no ``cudaHostAlloc``; a
+    freed buffer is handed out again only once its copies have
+    completed."""
 
     def __init__(self, slots: int, shape: tuple, dtype):
         self._bufs = [torch.empty(shape, dtype=dtype, pin_memory=True)
@@ -199,21 +202,86 @@ class _PinnedRing:
         self._next = 0
 
     def stage(self, xb: torch.Tensor) -> tuple[int, torch.Tensor]:
-        """Copy ``xb`` into the next free buffer, zero-padded: (slot, the
-        buffer)."""
+        """Copy ``xb`` (cast to the ring's dtype) into the leading rows of
+        the next free buffer: (slot, the buffer)."""
         slot = self._next
         self._next = (slot + 1) % len(self._bufs)
         if self._events[slot] is not None:
             self._events[slot].synchronize()
         buf = self._bufs[slot]
-        b = xb.shape[0]
-        buf[:b].copy_(xb)
-        if b < buf.shape[0]:
-            buf[b:].zero_()
+        buf[:xb.shape[0]].copy_(xb)
         return slot, buf
 
     def copied(self, slot: int, event) -> None:
         self._events[slot] = event
+
+
+# The resident split's upload (``stage_to_device``): a ring of UPLOAD_SLOTS
+# pinned buffers of UPLOAD_CHUNK elements each (16 MiB of float32). On an
+# H100's host, of chunks of 4-32 MiB in rings of 2 and 3, this one staged
+# the SMD split fastest; a deeper ring was no faster (PERF.md, section 6)
+UPLOAD_CHUNK = 1 << 22
+UPLOAD_SLOTS = 2
+
+
+def upload_chunks(numel: int, chunk: int) -> list:
+    """The ``(offset, length)`` pieces, in order, in which
+    :func:`stage_to_device` walks ``numel`` elements: ``chunk`` elements
+    each, the last one shorter where ``chunk`` does not divide ``numel``."""
+    return [(o, min(chunk, numel - o)) for o in range(0, numel, chunk)]
+
+
+def _host_elements(a) -> torch.Tensor:
+    """A CPU tensor of the elements of a host array in C order that
+    ``copy_`` casts to float32 as ``np.asarray(a, np.float32)`` does: a view
+    of a native float32 or float64 array (after one
+    ``np.ascontiguousarray`` where it is strided), else one float32
+    copy."""
+    a = np.asarray(a)
+    if a.dtype not in (np.float32, np.float64):
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def stage_to_device(a, device) -> tuple[torch.Tensor, int]:
+    """``a`` on ``device``, and the bytes that went through the pinned ring.
+
+    A host array becomes float32, what ``torch.as_tensor(np.asarray(a,
+    np.float32), device=device)`` makes of it; a tensor keeps its dtype, as
+    ``a.to(device)``. On a card, host input of more than
+    :data:`UPLOAD_CHUNK` elements goes through a ring of
+    :data:`UPLOAD_SLOTS` pinned buffers: each chunk of the elements in C
+    order (:func:`upload_chunks`) is cast into the next free buffer on the
+    host, then copied into its slice of the destination with
+    ``non_blocking=True`` on the device's current stream, so the host
+    stages chunk i+1 while the copy engine moves chunk i at the pinned
+    rate (a pageable copy stages through CUDA's own small buffer, one
+    chunk at a time, while the copy engine waits). Every element of ``a``
+    has been read when this returns, so the caller may change or free it
+    at once; the stream orders the copies before anything queued after
+    them, and the host does not wait for the last ones. Smaller input, a
+    CPU target and a tensor already on a device take the plain copy, and 0
+    bytes are staged."""
+    device = torch.device(device)
+    if isinstance(a, torch.Tensor):
+        if (device.type != "cuda" or a.device.type != "cpu"
+                or a.numel() <= UPLOAD_CHUNK):
+            return a.to(device), 0
+        src, dtype = a, a.dtype
+    else:
+        if device.type != "cuda" or np.size(a) <= UPLOAD_CHUNK:
+            return torch.as_tensor(np.asarray(a, np.float32),
+                                   device=device), 0
+        src, dtype = _host_elements(a), torch.float32
+    dst = torch.empty(src.shape, dtype=dtype, device=device)
+    stream = torch.cuda.current_stream(dst.device)
+    ring = _PinnedRing(UPLOAD_SLOTS, (UPLOAD_CHUNK,), dtype)
+    flat, out = src.reshape(-1), dst.view(-1)
+    for o, n in upload_chunks(flat.numel(), UPLOAD_CHUNK):
+        slot, buf = ring.stage(flat[o:o + n])
+        out[o:o + n].copy_(buf[:n], non_blocking=True)
+        ring.copied(slot, stream.record_event())
+    return dst, dst.numel() * dst.element_size()
 
 
 _DONE = object()
@@ -295,6 +363,8 @@ def prefetch_blocks(source: DataSource, chunk_size: int,
         if not on_card:
             return inline(xb), b, None
         slot, buf = ring.stage(xb)
+        if b < target:
+            buf[b:].zero_()
         block = buf.to(device, non_blocking=True)
         event = torch.cuda.Event()
         event.record(copy_stream)

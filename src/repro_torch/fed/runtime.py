@@ -54,6 +54,7 @@ from repro_torch.core.config import (derive_seed, is_source_list,
                                      resolve_device)
 from repro_torch.core.em import (_tree_add, _tree_leaves, _tree_map,
                                  wrap_int32)
+from repro_torch.data.sources import stage_to_device
 from repro_torch.fed.ledger import CommStats
 from repro_torch.fed.transforms import uplink_key
 
@@ -378,6 +379,27 @@ class ShardedClients:
             self.num_clients, cohort, weights, transform, tparams, tkey))
 
 
+def split_to_clients(split, device="cuda") -> SplitClients:
+    """A padded split (``data (C, N, d)``, ``mask (C, N)``, ``sizes (C,)``
+    numpy arrays, as ``partition`` makes them in either package; or a
+    :class:`SplitClients`, whose tensors keep their dtype) as
+    :class:`SplitClients` on ``device``, which keeps ``split`` (a
+    :class:`SplitClients` its own). Every call copies every byte of
+    ``data`` and ``mask``; on a card an array of more than one chunk
+    (:data:`~repro_torch.data.sources.UPLOAD_CHUNK` elements) goes through
+    the pinned ring of :func:`~repro_torch.data.sources.stage_to_device`.
+    Notes ``staged_bytes``, the bytes that went through the ring, on the
+    open span."""
+    # the mask first: where it takes the plain copy, that copy waits for
+    # the stream, which then holds none of the data's copies yet
+    mask, staged_mask = stage_to_device(split.mask, device)
+    data, staged_data = stage_to_device(split.data, device)
+    tracing.note("staged_bytes", staged_data + staged_mask)
+    return SplitClients(data, mask, split.sizes,
+                        split.split if isinstance(split, SplitClients)
+                        else split)
+
+
 def make_backend(clients, device, mesh=None, axis: str = "data"):
     """THE client dispatch: with a ``mesh``, ``(data, mask)`` arrays or a
     padded split become :class:`ShardedClients` over its ``axis`` (on the
@@ -386,7 +408,10 @@ def make_backend(clients, device, mesh=None, axis: str = "data"):
     ``data``/``mask``/``sizes`` arrays, such as
     ``repro_torch.core.partition.ClientSplit``) is copied onto ``device``,
     and a list of per-client DataSources becomes :class:`SourceClients` on
-    ``device``. The padded split's copy is the ``fed.upload`` span."""
+    ``device``. A padded split's copy, and a :class:`SplitClients`' move,
+    is the ``fed.upload`` span (:func:`split_to_clients`): every call
+    copies every byte, and an array of more than one chunk reaches a card
+    through the pinned ring."""
     if mesh is not None:
         if isinstance(clients, ShardedClients):
             return clients
@@ -397,15 +422,12 @@ def make_backend(clients, device, mesh=None, axis: str = "data"):
         return SourceClients(clients.sources, device, clients.executor)
     if is_source_list(clients):
         return SourceClients(clients, device)
-    if isinstance(clients, SplitClients):
-        data, mask = clients.data.to(device), clients.mask.to(device)
-        if data is clients.data and mask is clients.mask:
-            return clients
-        return SplitClients(data, mask, clients.sizes, clients.split)
     if all(hasattr(clients, f) for f in ("data", "mask", "sizes")):
-        from repro_torch.convert import split_to_clients
         with tracing.span("fed.upload"):
-            return split_to_clients(clients, device)
+            moved = split_to_clients(clients, device)
+        if moved.data is clients.data and moved.mask is clients.mask:
+            return clients
+        return moved
     raise TypeError(f"federated clients must be a ClientSplit, "
                     f"SplitClients or a non-empty list of DataSources, got "
                     f"{type(clients).__name__}")

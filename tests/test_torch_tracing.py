@@ -142,7 +142,8 @@ def test_em_loop_iters_equal_n_iter(path, small_split):
         assert len(loops) == 2
     else:
         assert loops == []
-    assert all(set(s.info) <= {"iters"} for s in rec.spans)
+    assert all(set(s.info) <= {"iters"} for s in rec.spans
+               if s.name != "fed.upload")
 
 
 @pytest.mark.parametrize("path", PATHS)
